@@ -1,0 +1,140 @@
+"""Hopper kernel: decode attention over a block-paged KV pool.
+
+The CUDA source is ``csrc/paged_attention.cu`` (its header comment gives the
+design and the bound). It is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface at first use, into ``build/kernels``
+at the repository root (a directory git ignores), and loaded with ctypes.
+The library's file name carries a hash of the source, so an edited source is
+rebuilt and a stale library is never loaded.
+
+``launches`` counts kernel launches made through ``paged_attention``; a run
+sets it to 0 and reads it back to show that a path went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+launches = 0
+build_seconds = None      # wall time of this process's nvcc run (None: cached)
+_lib = None
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the paged-attention kernel is "
+                           "built from source and needs the CUDA toolkit")
+    return path
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"libpaged_attention-{digest}.so"
+
+
+def build() -> Path:
+    """Compile the kernel library if this source has not been built yet.
+    The output is written under a temporary name and renamed into place, so
+    a concurrent or interrupted build never leaves a partial library."""
+    global build_seconds
+    lib = library_path()
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, lib)
+    build_seconds = time.perf_counter() - t0
+    return lib
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.paged_attention_launch.argtypes = [ptr] * 7 + [i32] * 8 + [ptr]
+        lib.paged_attention_launch.restype = i32
+        lib.paged_attention_max_rep_d.argtypes = []
+        lib.paged_attention_max_rep_d.restype = i32
+        _lib = lib
+    return _lib
+
+
+def _check(q, k_pages, v_pages, block_tables, lengths, starts):
+    b, h, d = q.shape
+    kheads, _, page, dk = k_pages.shape
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"paged_attention takes float32 or bfloat16, "
+                        f"not {q.dtype}")
+    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise TypeError("q, k_pages and v_pages must share one dtype")
+    if v_pages.shape != k_pages.shape or dk != d or h % kheads:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, pages "
+                         f"{tuple(k_pages.shape)} / {tuple(v_pages.shape)}")
+    if d * q.element_size() % 16:
+        raise ValueError(f"head_dim {d} is not a whole number of 16-byte "
+                         "vectors")
+    ints = [block_tables, lengths] + ([starts] if starts is not None else [])
+    if any(t.dtype != torch.int32 for t in ints):
+        raise TypeError("block_tables, lengths and starts must be int32")
+    if block_tables.shape[0] != b or lengths.shape != (b,) or \
+            (starts is not None and starts.shape != (b,)):
+        raise ValueError("block_tables, lengths and starts need one row per "
+                         "sequence")
+    tensors = [q, k_pages, v_pages] + ints
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("paged_attention needs contiguous tensors")
+    return tensors
+
+
+def paged_attention(q, k_pages, v_pages, block_tables, lengths, starts=None):
+    """q: (B, H, D); k_pages/v_pages: (K, P, page, D); block_tables:
+    (B, pages_per_seq) int32; lengths: (B,) int32; starts: optional (B,)
+    int32 window lower bound (None = 0). Returns (B, H, D) in q's dtype.
+    Launches the CUDA kernel on the current stream; raises on any input the
+    kernel does not take and when the launch fails."""
+    global launches
+    tensors = _check(q, k_pages, v_pages, block_tables, lengths, starts)
+    lib = _library()
+    if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
+        raise ValueError("paged_attention's CUDA kernel needs every tensor "
+                         "on one CUDA device")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("K/V pools must be 16-byte aligned")
+    b, h, d = q.shape
+    kheads, n_phys, page, _ = k_pages.shape
+    if (h // kheads) * d > lib.paged_attention_max_rep_d():
+        raise ValueError(f"rep * head_dim = {(h // kheads) * d} exceeds the "
+                         "kernel's accumulator capacity")
+    out = torch.empty_like(q)
+    rc = lib.paged_attention_launch(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        block_tables.data_ptr(), lengths.data_ptr(),
+        starts.data_ptr() if starts is not None else None, out.data_ptr(),
+        b, h, kheads, n_phys, page, d, block_tables.shape[1],
+        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_attention launch failed: CUDA error {rc}")
+    launches += 1
+    return out

@@ -1,0 +1,44 @@
+"""Plain PyTorch versions of the port's kernels: the allclose targets that
+the CPU tests use and that ``chip_smoke.py`` holds each CUDA kernel against.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths,
+                        starts=None):
+    """Decode attention over a block-paged KV pool.
+
+    q:            (B, H, D)            one query token per sequence
+    k_pages/v_pages: (K, P, page, D)   pool: kv-head major, P physical pages
+    block_tables: (B, pages_per_seq) int32 physical page per logical page
+    lengths:      (B,) int32           valid tokens per sequence
+    starts:       optional (B,) int32  window start per sequence — positions
+                  < starts[b] are masked out (at least one position must stay
+                  valid, i.e. starts[b] < lengths[b])
+    Returns (B, H, D) in q's dtype.
+    """
+    b, h, d = q.shape
+    kheads, _, page, _ = k_pages.shape
+    pages_per_seq = block_tables.shape[1]
+    rep = h // kheads
+    bt = block_tables.long()
+    pos = torch.arange(pages_per_seq * page, device=q.device)
+    out = []
+    for i in range(b):
+        # gather this sequence's KV (K, pages*page, D)
+        ki = k_pages[:, bt[i]].reshape(kheads, pages_per_seq * page, d)
+        vi = v_pages[:, bt[i]].reshape(kheads, pages_per_seq * page, d)
+        kq = ki.repeat_interleave(rep, dim=0).float()       # (H, S, D)
+        vq = vi.repeat_interleave(rep, dim=0).float()
+        s = torch.einsum("hd,hsd->hs", q[i].float(), kq) / math.sqrt(d)
+        mask = pos < lengths[i]
+        if starts is not None:
+            mask &= pos >= starts[i]
+        s = torch.where(mask[None], s, torch.full_like(s, -1e30))
+        p = torch.softmax(s, dim=-1)
+        out.append(torch.einsum("hs,hsd->hd", p, vq))
+    return torch.stack(out).to(q.dtype)

@@ -20,6 +20,10 @@ def pytest_configure(config):
         "slow: long-running chaos / deep property suites — excluded from "
         "tier-1 by default; run with --runslow (CI runs them as a separate "
         "non-blocking job)")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card (a CUDA kernel has no CPU mode) — skips "
+        "without one; run on the card with `python -m pytest -m gpu`")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,102 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+A CUDA kernel has no CPU mode, so every test here carries the ``gpu``
+marker and skips without a card. This file imports nothing of JAX, so it
+runs where only PyTorch is installed:
+
+  python -m pytest -q -m gpu tests/test_torch_gpu.py
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import paged_attention as PA  # noqa: E402
+from repro_torch.kernels.ref import paged_attention_ref  # noqa: E402
+from repro_torch.models import paged_decode as PD  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+
+TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _case(b, h, kheads, d, page, pps, dtype, seed=0):
+    """Ragged lengths (sequence 0 inside its first page: later pages fully
+    masked), window starts (the last sequence's page 0 fully masked)."""
+    rng = np.random.default_rng(seed)
+    n_phys = pps * b + 3
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(dtype).cuda()
+    q, kp, vp = f(b, h, d), f(kheads, n_phys, page, d), \
+        f(kheads, n_phys, page, d)
+    tables = rng.permutation(n_phys)[: b * pps].reshape(b, pps)
+    lengths = rng.integers(1, pps * page + 1, b)
+    lengths[0] = max(1, min(lengths[0], page - 1))
+    lengths[-1] = pps * page
+    starts = rng.integers(0, lengths)
+    if pps > 1:
+        starts[-1] = page + 1
+    i32 = lambda a: torch.from_numpy(a.astype(np.int32)).cuda()  # noqa: E731
+    return q, kp, vp, i32(tables), i32(lengths), i32(starts)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (8, 32, 8, 128, 16, 16),   # llama3-8b serving shape
+    (1, 4, 4, 64, 16, 2),      # MHA
+    (3, 8, 1, 128, 16, 3),     # MQA
+    (2, 16, 8, 128, 32, 2),    # bigger page
+    (4, 4, 2, 256, 16, 5),     # head_dim 256
+    (4, 4, 2, 64, 8, 5),       # reduced test config (page 8, D 64)
+])
+def test_paged_attention_kernel_matches_plain(card, dtype, shape):
+    q, kp, vp, bt, ln, st = _case(*shape, dtype)
+    for starts in (None, st):
+        before = PA.launches
+        got = PA.paged_attention(q, kp, vp, bt, ln, starts)
+        torch.cuda.synchronize()
+        assert PA.launches == before + 1
+        want = paged_attention_ref(q, kp, vp, bt, ln, starts)
+        assert got.dtype == dtype and got.shape == q.shape
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_decode_step_runs_through_kernel(card):
+    """One paged decode step of the reduced config on the card launches the
+    kernel once per layer and matches the same step on the CPU."""
+    cfg = dataclasses.replace(get_config("llama3-8b").reduced(),
+                              dtype="float32", kv_dtype="float32")
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                     device="cpu")
+
+    def to_card(tree):
+        return {k: to_card(v) if isinstance(v, dict) else v.to(card)
+                for k, v in tree.items()}
+
+    gpu_params = to_card(params)
+    kp, vp = PD.init_pages(cfg, 17, cfg.page_size)
+    tables = torch.arange(1, 17, dtype=torch.int32).reshape(4, 4)
+    pos = torch.tensor([3, 9, 17, 30], dtype=torch.int32)
+    tok = torch.tensor([5, 7, 11, 13], dtype=torch.int32)
+    kg, vg = kp.cuda(), vp.cuda()          # copies, before the CPU step
+    cpu = PD.decode_step_paged(cfg, params, tok, kp, vp, tables, pos)
+    before = PA.launches
+    gpu = PD.decode_step_paged(cfg, gpu_params, tok.cuda(), kg, vg,
+                               tables.cuda(), pos.cuda())
+    torch.cuda.synchronize()
+    assert PA.launches == before + cfg.n_layers
+    torch.testing.assert_close(gpu[1].cpu(), cpu[1], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(kg.cpu(), kp, rtol=1e-5, atol=1e-5)

@@ -7,31 +7,42 @@ Phases (each raises, and the script exits non-zero, if its check fails):
 
   1. device   — a CUDA card is required; prints its name and power limit;
                 TF32 off for matmuls and convolutions.
-  2. build    — compiles the paged-attention kernel from
-                src/repro_torch/kernels/csrc/ with nvcc (sm_90a).
-  3. kernel   — holds the CUDA kernel against its plain PyTorch version at
-                the serving shape (B=8, H=32, K=8, D=128, page 16, 16 pages,
-                bf16, ragged lengths, with and without window starts, fully
-                masked pages), in f32, and at the reduced test shape (page 8,
-                D 64); times kernel and plain version with CUDA events.
-  4. serving  — the port's HTTP server with full-width Llama-3.1-8B (random
+  2. build    — compiles both kernel libraries (paged attention, bf16 and
+                int8 pools) from src/repro_torch/kernels/csrc/ with nvcc
+                (sm_90a), one nvcc process per source, started together.
+  3. kernel   — holds the bf16 paged-attention kernel against its plain
+                PyTorch version at the serving shape (B=8, H=32, K=8, D=128,
+                page 16, 16 pages, bf16, ragged lengths, with and without
+                window starts, fully masked pages), in f32, and at the
+                reduced test shape (page 8, D 64); times kernel and plain
+                version with CUDA events.
+  4. kernel (int8) — the same for the int8 kernel over quantized pages
+                (q in bf16 and f32, both shapes, one all-zero row with
+                scale 1), and quantize_pages on the card against the CPU,
+                bit for bit.
+  5. serving  — the port's HTTP server with full-width Llama-3.1-8B (random
                 weights from a seeded torch.Generator), 2 instances, ring
                 replication on; concurrent completions, greedy determinism,
                 TTFT / per-token latency / tokens per second.
-  5. failover — the same prompts again; an instance kill through
+  6. failover — the same prompts again; an instance kill through
                 /v1/admin/fault while they decode; every stream must equal
                 the failure-free one, with at least one migration.
-  6. decode profile — one instance's decode step called directly: wall
+  7. decode profile — one instance's decode step called directly: wall
                 time, device-busy time and op count (torch.profiler).
-  7. summary  — one JSON line of kernels, the card line, and the final
+  8.-10. serving, failover and decode profile again on a second service
+                built from the SAME weights with the int8 KV pool and
+                chunked prefill (chunks of 64); the kill may restart only
+                requests caught mid-prefill on the victim.
+  11. summary — one JSON line of kernels, the card line, and the final
                 {"ok": true, "device": ...} line.
 
-Each path's kernel launch count is set to 0 just before the path and read
+Each path's kernel launch counts are set to 0 just before the path and read
 just after; launches made to compare a kernel with its plain version are
 not counted.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import math
 import os
@@ -50,7 +61,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
-from repro_torch.kernels.ref import paged_attention_ref  # noqa: E402
+from repro_torch.kernels import paged_attention_int8 as PA8  # noqa: E402
+from repro_torch.kernels.ref import (paged_attention_int8_ref,  # noqa: E402
+                                     paged_attention_ref)
 from repro_torch.serving.engine import EngineConfig  # noqa: E402
 from repro_torch.serving.server import serve  # noqa: E402
 
@@ -60,6 +73,11 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,         # dense tensor-core bf16
 TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-5}
 LAYERS_PER_STEP = 32                          # one launch per layer per step
 SERVE_PROMPT_LENS = [16, 48, 96, 150, 200]
+
+
+def kname(mod) -> str:
+    """A kernel wrapper module's short name ("paged_attention_int8")."""
+    return mod.__name__.rsplit(".", 1)[-1]
 
 
 def check(ok: bool, msg: str):
@@ -106,10 +124,11 @@ def kernel_case(b, h, kheads, d, page, pps, n_phys, dtype, seed, full=False):
     return q, kp, vp, t(tables), t(lengths), t(starts)
 
 
-def bound_ms(q, kp, lengths, starts):
-    """Least time for this call: bytes it must move (valid K/V rows, q,
-    out, one table entry per live page, lengths, starts) over the memory
-    rate, or its FLOPs over the peak rate of its type — the larger."""
+def bound_ms(q, kp, lengths, starts, scales=None):
+    """Least time for this call: bytes it must move (valid K/V rows, with
+    their scale rows on an int8 pool, q, out, one table entry per live
+    page, lengths, starts) over the memory rate, or its FLOPs over the peak
+    rate of its type — the larger."""
     b, h, d = q.shape
     kheads, _, page, _ = kp.shape
     ln = lengths.cpu().numpy().astype(np.int64)
@@ -117,7 +136,9 @@ def bound_ms(q, kp, lengths, starts):
         else starts.cpu().numpy().astype(np.int64)
     tokens = int((ln - st).sum())
     live_pages = int((-(-ln // page) - st // page).sum())
-    nbytes = (2 * tokens * kheads * d * kp.element_size()
+    row_bytes = d * kp.element_size() + \
+        (scales.element_size() if scales is not None else 0)
+    nbytes = (2 * tokens * kheads * row_bytes
               + 2 * q.numel() * q.element_size()
               + 4 * (live_pages + 2 * b))
     flops = 4 * tokens * h * d
@@ -218,7 +239,73 @@ def kernel_phase() -> dict:
             "bound_ms": bms, "bound_by": by, "library_ms": None}
 
 
-# -- 4./5. serving and failover -------------------------------------------------
+def int8_case(shape, dtype, seed, full=False):
+    """``kernel_case`` over a quantized pool: K/V drawn in f32 and quantized
+    on the card, with one all-zero token row (scale 1) at a valid position
+    of the last (full-length) sequence; q in ``dtype``."""
+    b, h, kheads, d, page, pps, n_phys = shape
+    q, kp, vp, bt, ln, st = kernel_case(*shape, dtype=torch.float32,
+                                        seed=seed, full=full)
+    row = int(bt[-1, 1])                      # position page + 3 >= start
+    kp[:, row, 3] = 0.0
+    vp[:, row, 3] = 0.0
+    kq, ks = PA8.quantize_pages(kp)
+    vq, vs = PA8.quantize_pages(vp)
+    check(bool((ks[:, row, 3] == 1).all()), "zero row must get scale 1")
+    return (q.to(dtype), kq, ks, vq, vs, bt, ln, st), kp
+
+
+def kernel_int8_phase() -> dict:
+    serve_shape = (8, 32, 8, 128, 16, 16, 257)    # B,H,K,D,page,pps,P
+    reduced = (4, 4, 2, 64, 8, 32, 129)
+    cases = [(serve_shape, torch.bfloat16), (serve_shape, torch.float32),
+             (reduced, torch.float32), (reduced, torch.bfloat16)]
+    max_err = 0.0
+    for i, (shape, dtype) in enumerate(cases):
+        (q, kq, ks, vq, vs, bt, ln, st), kp = int8_case(shape, dtype, seed=i)
+        if i == 0:
+            # the pool's quantization on the card equals the CPU's bits
+            cq, cs = PA8.quantize_pages(kp.cpu())
+            check(torch.equal(kq.cpu(), cq) and torch.equal(
+                ks.cpu().view(torch.int16), cs.view(torch.int16)),
+                "quantize_pages on the card differs from the CPU")
+            print("quantize_pages: card == CPU, bit for bit "
+                  f"({kp.numel()} values)")
+        for starts in (None, st):
+            got = PA8.paged_attention_int8(q, kq, ks, vq, vs, bt, ln, starts)
+            torch.cuda.synchronize()
+            want = paged_attention_int8_ref(q, kq, ks, vq, vs, bt, ln, starts)
+            err = float((got.float() - want.float()).abs().max())
+            print(f"int8 kernel check {shape} q {dtype} "
+                  f"starts={starts is not None}: max_abs_err {err:.3e} "
+                  f"(limit {TOL[dtype]:.0e})")
+            check(math.isfinite(err) and err <= TOL[dtype],
+                  f"int8 kernel disagrees with plain version: {err}")
+            max_err = max(max_err, err)
+    # timing at the serving shape, every sequence at full length (256);
+    # 12 x 4.4 MB of live K/V and scales > the 50 MB L2
+    sets = [int8_case(serve_shape, torch.bfloat16, seed=100 + j,
+                      full=True)[0][:7] for j in range(12)]
+    ms = graph_ms(PA8.paged_attention_int8, sets)
+    plain_ms = graph_ms(paged_attention_int8_ref, sets, reps=20)
+    eager_ms = time_ms(PA8.paged_attention_int8, sets)
+    eager_plain_ms = time_ms(paged_attention_int8_ref, sets, reps=20,
+                             warmup=1)
+    q, kq, ks, _, _, _, ln = sets[0]
+    bms, by = bound_ms(q, kq, ln, None, scales=ks)
+    print(f"int8 kernel at serving shape, device time (CUDA graph): "
+          f"{ms * 1e3:.2f} us; plain {plain_ms * 1e3:.2f} us; bound "
+          f"{bms * 1e3:.2f} us ({by})")
+    print(f"int8 kernel at serving shape, eager call incl. host dispatch: "
+          f"{eager_ms * 1e3:.2f} us; plain {eager_plain_ms * 1e3:.2f} us")
+    return {"name": "paged_attention_int8", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attention_int8.cu",
+            "replaces": "src/repro/kernels/paged_attention_int8.py:30",
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None}
+
+
+# -- 5.-10. serving, failover and decode profile, per pool ---------------------
 
 class Client:
     def __init__(self, port: int):
@@ -276,13 +363,15 @@ def serving_metrics(resps, wall):
             "tokens": n_tok}
 
 
-def decode_profile(engine, card: str):
+def decode_profile(engine, card: str, kernel):
     """One instance's decode step, called directly on the engine's weights
     and pool with every slot at position 200 (13 live pages): wall time per
     step (synchronised host clock), device-busy time per step (sum of
     kernel times under torch.profiler), the paged-attention kernel's share,
-    and the aten ops dispatched per step."""
+    and the aten ops and kernel launches per step. ``kernel`` is the
+    wrapper module of the pool's attention kernel."""
     inst = engine.instances[-1]
+    pool = inst.pool
     b, width = engine.ecfg.max_slots, inst.pages_per_seq
     bt = torch.arange(1, 1 + b * width, dtype=torch.int32,
                       device="cuda").reshape(b, width)
@@ -291,18 +380,22 @@ def decode_profile(engine, card: str):
     tok = torch.arange(1, b + 1, dtype=torch.int32, device="cuda")
 
     def step():
-        inst._decode(engine.params, tok, inst.pool.k, inst.pool.v, bt, pos,
-                     base, inst._generator)
+        inst._decode(engine.params, tok, pool.k, pool.v, pool.k_scale,
+                     pool.v_scale, bt, pos, base, inst._generator)
 
     for _ in range(2):
         step()
     torch.cuda.synchronize()
     n = 5
+    kernel.launches = 0
     t0 = time.perf_counter()
     for _ in range(n):
         step()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / n
+    check(kernel.launches == n * LAYERS_PER_STEP,
+          f"decode profile: {kernel.launches} {kname(kernel)} launches")
+    per_step = kernel.launches / n
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -315,101 +408,137 @@ def decode_profile(engine, card: str):
     kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / n / 1e3
+    name = kname(kernel) + "_kernel"
     attn = sum(e.self_device_time_total for e in kernels
-               if "paged_attention_kernel" in e.key) / n / 1e3
+               if name in e.key) / n / 1e3
     ops = sum(e.count for e in events if e.key.startswith("aten::")) / n
-    m = {"decode_step_wall_ms": wall * 1e3, "device_busy_ms": busy,
-         "paged_attention_ms": attn, "aten_ops_per_step": ops,
+    m = {"pool": str(pool.k.dtype).replace("torch.", ""),
+         "decode_step_wall_ms": wall * 1e3, "device_busy_ms": busy,
+         f"{name}_ms": attn,
+         f"{name}_launches_per_step": per_step,
+         "aten_ops_per_step": ops,
+         "kernel_launches_per_step": sum(e.count for e in kernels) / n,
          "device_idle_share": 1 - busy / (wall * 1e3) if busy else None}
     print(f"decode step profile [{card}]: " + json.dumps(m))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  device ms/step {e.self_device_time_total / n / 1e3:8.3f}"
               f"  launches/step {e.count / n:7.1f}  {e.key[:90]}")
-    print(f"  kernel launches per step: {sum(e.count for e in kernels) / n}")
     if not busy:
         print("decode step profile: the profiler saw no device time "
               "(device busy not measured)")
 
 
-def serving_phases(card: str) -> int:
-    cfg = get_config("llama3-8b")
-    print(f"model {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"vocab {cfg.vocab_size}, {cfg.n_params() / 1e9:.2f} B params, "
-          f"{cfg.dtype}, random weights (torch.Generator seed 0)")
-    check(cfg.n_layers == LAYERS_PER_STEP, "layer count")
+def block_bytes(cfg, quantized: bool) -> int:
+    """One replication message: K and V rows of every layer and KV head of
+    one page — int8 plus a bf16 scale per row, or bf16."""
+    rows = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.page_size
+    return rows * (cfg.head_dim + 2) if quantized else rows * cfg.head_dim * 2
+
+
+def run_path(card, cfg, ecfg, kernel, idle, label, prompts, params=None):
+    """One serving path end to end: start the HTTP service (on ``params``
+    when given), warm it up, then serving, failover and decode profile.
+    ``kernel`` is the wrapper module the path must launch (a positive
+    multiple of 32 launches), ``idle`` the one it must not launch. Returns
+    (launches on the serving and failover phases, the engine's params)."""
     t0 = time.perf_counter()
-    svc, httpd = serve(cfg, EngineConfig(max_slots=8, max_seq=256),
-                       n_instances=2, port=0, device="cuda")
-    print(f"engine up in {time.perf_counter() - t0:.1f} s "
-          f"(params + 2 KV pools; {torch.cuda.memory_allocated() / 2**30:.1f}"
-          f" GiB allocated)")
+    svc, httpd = serve(cfg, ecfg, n_instances=2, port=0, device="cuda",
+                       params=params)
+    print(f"[{label}] engine up in {time.perf_counter() - t0:.1f} s "
+          f"({'shared' if params is not None else 'new'} params + 2 KV "
+          f"pools of {svc.engine.instances[0].pool.block_nbytes} B per "
+          f"block; {torch.cuda.memory_allocated() / 2**30:.1f} GiB "
+          f"allocated)")
     server = threading.Thread(target=httpd.serve_forever, daemon=True)
     server.start()
     launches = 0
+
+    def counted(what, fn):
+        """Run ``fn`` with both kernels' launch counts set to 0 just before
+        and read just after; check the path went through ``kernel``."""
+        nonlocal launches
+        kernel.launches = idle.launches = 0
+        out = fn()
+        n, other = kernel.launches, idle.launches
+        launches += n
+        print(f"[{label}] {kname(kernel)} launches in {what}: {n}; "
+              f"{kname(idle)}: {other}")
+        check(n > 0 and n % LAYERS_PER_STEP == 0,
+              f"{what} launch count {n} is not a positive multiple of "
+              f"{LAYERS_PER_STEP}")
+        check(other == 0, f"{what} launched {kname(idle)} {other} times")
+        return out
+
     try:
         client = Client(httpd.server_address[1])
-        rng = np.random.default_rng(0)
-        prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
-                   for n in SERVE_PROMPT_LENS]
-        prompts.append(list(prompts[1]))          # the same prompt twice
         # warm-up: cuBLAS handles and the first allocations
         warm = client.post("/v1/completions",
                            {"prompt_tokens": prompts[0], "max_tokens": 4})
         check(len(warm["choices"][0]["token_ids"]) == 4, "warm-up")
 
-        phase("serving")
+        phase(f"serving ({label})")
         n_samples = len(svc.engine.step_samples)
-        PA.launches = 0
         t0 = time.perf_counter()
-        resps = join(*client.completions(prompts, 32))
+        resps = counted("serving",
+                        lambda: join(*client.completions(prompts, 32)))
         wall = time.perf_counter() - t0
         steps = [w for _, w in svc.engine.step_samples[n_samples:]]
-        n = PA.launches
-        launches += n
-        print(f"paged_attention launches in serving: {n}")
-        check(n > 0 and n % LAYERS_PER_STEP == 0,
-              f"launch count {n} is not a positive multiple of "
-              f"{LAYERS_PER_STEP}")
         streams = [r["choices"][0]["token_ids"] for r in resps]
         vocab = cfg.vocab_size
         check(all(len(s) == 32 and all(0 <= t < vocab for t in s)
                   for s in streams), "completion shape / token range")
         check(streams[1] == streams[-1], "greedy determinism: same prompt, "
               "different tokens")
+        repl = client.health()["replication"]
+        per_block = repl["bytes_total"] / max(repl["blocks_total"], 1)
+        print(f"[{label}] replication: {repl['blocks_total']} blocks, "
+              f"{repl['bytes_total']} B, {per_block:.0f} B per block")
+        want = block_bytes(cfg, ecfg.kv_quant)
+        check(repl["blocks_total"] > 0 and per_block == want,
+              f"replicated bytes per block {per_block} != {want}")
         m = serving_metrics(resps, wall)
         m["engine_steps"] = len(steps)
         m["engine_step_s_median"] = statistics.median(steps)
-        print(f"serving [{card}]: " + json.dumps(m))
+        m["replicated_bytes_per_block"] = per_block
+        print(f"serving [{label}] [{card}]: " + json.dumps(m))
 
-        phase("failover")
-        PA.launches = 0
-        threads, out, errs = client.completions(prompts, 32)
-        deadline = time.time() + 300
-        victim = None
-        while victim is None:
-            check(time.time() < deadline, "no instance started decoding")
-            active = [i["active"] for i in client.health()["instances"]]
-            if max(active) > 0:
-                victim = int(np.argmax(active))
-            else:
-                time.sleep(0.005)
-        fault = client.post("/v1/admin/fault",
-                            {"granularity": "instance",
-                             "instance_id": victim, "if_busy": True})
-        check(fault["applied"], "fault was not applied")
-        print(f"killed instance {victim}; seamlessly resumed "
-              f"{fault['seamlessly_resumed']}")
-        resps2 = join(threads, out, errs)
-        n = PA.launches
-        launches += n
-        print(f"paged_attention launches in failover: {n}")
-        check(n > 0 and n % LAYERS_PER_STEP == 0,
-              f"failover launch count {n}")
+        phase(f"failover ({label})")
+
+        def drill():
+            threads, out, errs = client.completions(prompts, 32)
+            deadline = time.time() + 300
+            while True:
+                check(time.time() < deadline, "no instance started decoding")
+                h = client.health()
+                inst = h["instances"]
+                admitted = sum(i["active"] for i in inst)
+                decoding = [i["active"] - i["prefilling"] for i in inst]
+                # every prompt holds a slot (none is left to be admitted
+                # onto the victim after this read) and one instance decodes
+                if admitted == len(prompts) and max(decoding) > 0:
+                    break
+                time.sleep(0.002)
+            victim = int(np.argmax(decoding))
+            prefilling = inst[victim]["prefilling"]
+            fault = client.post("/v1/admin/fault",
+                                {"granularity": "instance",
+                                 "instance_id": victim, "if_busy": True})
+            check(fault["applied"], "fault was not applied")
+            print(f"[{label}] killed instance {victim} ({decoding[victim]} "
+                  f"decoding, {prefilling} mid-prefill just before the "
+                  f"fault); seamlessly resumed {fault['seamlessly_resumed']}")
+            return join(threads, out, errs), victim, prefilling
+
+        resps2, victim, prefilling = counted("failover", drill)
         migrations = [r["kevlarflow"]["migrations"] for r in resps2]
-        print(f"migrations per request: {migrations}")
+        retries = [r["kevlarflow"]["retries"] for r in resps2]
+        print(f"[{label}] migrations per request: {migrations}; retries "
+              f"per request: {retries}; a mid-prefill victim was "
+              f"{'hit' if sum(retries) else 'not hit'}")
         check(max(migrations) >= 1, "no request migrated")
-        check(all(r["kevlarflow"]["retries"] == 0 for r in resps2),
-              "a request restarted instead of resuming")
+        check(sum(retries) <= prefilling,
+              f"{sum(retries)} requests restarted, but only {prefilling} "
+              "were mid-prefill on the victim")
         check([r["choices"][0]["token_ids"] for r in resps2] == streams,
               "resumed streams differ from the failure-free run")
         health = client.health()
@@ -419,22 +548,63 @@ def serving_phases(card: str) -> int:
               "health does not show the kill")
         check(health["topology"]["states"][str(survivor)] == "HEALTHY",
               "survivor not healthy")
+        check(health["failure_events"][0]["restarted"] == sum(retries),
+              "failure event disagrees with the retries")
         after = client.post("/v1/completions",
                             {"prompt_tokens": prompts[0], "max_tokens": 8})
         check(after["choices"][0]["token_ids"] == streams[0][:8],
               "survivor's stream differs")
-        print(f"failover [{card}]: all {len(resps2)} streams byte-identical "
-              f"to the failure-free run; survivor {survivor} serving")
+        print(f"failover [{label}] [{card}]: all {len(resps2)} streams "
+              f"byte-identical to the failure-free run; survivor {survivor} "
+              "serving")
         httpd.shutdown()
         svc.shutdown()
 
-        phase("decode profile")
-        decode_profile(svc.engine, card)
+        phase(f"decode profile ({label})")
+        decode_profile(svc.engine, card, kernel)
     finally:
         httpd.shutdown()
         svc.shutdown()
         server.join(timeout=30)
-    return launches
+    return launches, svc.engine.params
+
+
+def serving_phases(card: str) -> dict:
+    """The bf16 path, then the int8 + chunked-prefill path on the same
+    weights. Returns each kernel's launches on its path."""
+    cfg = get_config("llama3-8b")
+    print(f"model {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab_size}, {cfg.n_params() / 1e9:.2f} B params, "
+          f"{cfg.dtype}, random weights (torch.Generator seed 0)")
+    check(cfg.n_layers == LAYERS_PER_STEP, "layer count")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in SERVE_PROMPT_LENS]
+    prompts.append(list(prompts[1]))          # the same prompt twice
+    bf16, params = run_path(
+        card, cfg, EngineConfig(max_slots=8, max_seq=256), PA, PA8, "bf16",
+        prompts)
+    # same weights, int8 pool, chunks of 64: the 200-token prompt runs 4
+    int8, _ = run_path(
+        card, cfg, EngineConfig(max_slots=8, max_seq=256, kv_quant=True,
+                                prefill_chunk=64),
+        PA8, PA, "int8 + chunked prefill", prompts, params=params)
+    return {"paged_attention": bf16, "paged_attention_int8": int8}
+
+
+def build_all():
+    """Both kernel libraries from source, one nvcc process per source, all
+    started together."""
+    t0 = time.perf_counter()
+    mods = (PA, PA8)
+    with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
+        libs = list(pool.map(lambda m: m.build(), mods))   # re-raises
+    for m, lib in zip(mods, libs):
+        secs = m.build_seconds
+        print(f"built {os.path.relpath(lib, ROOT)} in "
+              f"{secs:.1f} s" if secs is not None else
+              f"{os.path.relpath(lib, ROOT)} already built")
+    print(f"build phase: {time.perf_counter() - t0:.1f} s wall")
 
 
 def main() -> int:
@@ -445,20 +615,19 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     phase("build")
-    t0 = time.perf_counter()
-    lib = PA.build()
-    secs = PA.build_seconds
-    print(f"built {os.path.relpath(lib, ROOT)} in "
-          f"{secs if secs is not None else time.perf_counter() - t0:.1f} s"
-          f"{'' if secs is not None else ' (already built)'}")
+    build_all()
 
     phase("kernel")
-    entry = kernel_phase()
+    entries = [kernel_phase()]
+    phase("kernel (int8)")
+    entries.append(kernel_int8_phase())
 
-    entry["launches"] = serving_phases(card)
+    launches = serving_phases(card)
+    for e in entries:
+        e["launches"] = launches[e["name"]]
 
     phase("summary")
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,7 +21,7 @@ def _leaf(arr, device) -> torch.Tensor:
     return t.to(device)
 
 
-def from_jax_numpy(tree, device="cpu"):
+def from_jax_numpy(tree, device="cuda"):
     """Nested dicts of numpy arrays -> nested dicts of torch tensors on
     ``device``, bit-exact (layer-stacked leaves keep their leading L axis)."""
     if isinstance(tree, dict):

@@ -3,7 +3,10 @@ version (``kernels/ref.py``); any other tensor goes to the CUDA kernel,
 which launches or raises — it never falls back to the plain version."""
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import paged_attention_int8 as _pa8
 from repro_torch.kernels import ref
 
 
@@ -18,3 +21,20 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, starts=None):
                                        lengths, starts)
     return _pa.paged_attention(q, k_pages, v_pages, block_tables, lengths,
                                starts)
+
+
+def paged_attention_int8(q, k_pages, k_scales, v_pages, v_scales,
+                         block_tables, lengths, starts=None):
+    """Decode attention over an int8-quantized block-paged KV pool
+    (per-row symmetric bf16 scales, dequantized after the page load). Same
+    ``starts`` semantics as ``paged_attention``. See
+    ``kernels/paged_attention_int8.py``."""
+    assert q.ndim == 3 and k_pages.ndim == 4
+    assert k_pages.dtype == torch.int8 and v_pages.dtype == torch.int8
+    assert q.shape[1] % k_pages.shape[0] == 0, "H must be a multiple of K"
+    if q.device.type == "cpu":
+        return ref.paged_attention_int8_ref(q, k_pages, k_scales, v_pages,
+                                            v_scales, block_tables, lengths,
+                                            starts)
+    return _pa8.paged_attention_int8(q, k_pages, k_scales, v_pages, v_scales,
+                                     block_tables, lengths, starts)

@@ -1,11 +1,9 @@
 """Hopper kernel: decode attention over a block-paged KV pool.
 
 The CUDA source is ``csrc/paged_attention.cu`` (its header comment gives the
-design and the bound). It is compiled by ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface at first use, into ``build/kernels``
-at the repository root (a directory git ignores), and loaded with ctypes.
-The library's file name carries a hash of the source, so an edited source is
-rebuilt and a stale library is never loaded.
+design and the bound); ``kernels/build.py`` compiles it with ``nvcc`` for
+``sm_90a`` at first use into ``build/kernels/libpaged_attention-<hash>.so``
+and loads it with ctypes.
 
 ``launches`` counts kernel launches made through ``paged_attention``; a run
 sets it to 0 and reads it back to show that a path went through the kernel.
@@ -13,72 +11,34 @@ sets it to 0 and reads it back to show that a path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+from repro_torch.kernels.build import KernelLibrary
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
-build_seconds = None      # wall time of this process's nvcc run (None: cached)
-_lib = None
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the paged-attention kernel is "
-                           "built from source and needs the CUDA toolkit")
-    return path
+def _bind(lib):
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.paged_attention_launch.argtypes = [ptr] * 7 + [i32] * 8 + [ptr]
+    lib.paged_attention_launch.restype = i32
+    lib.paged_attention_max_rep_d.argtypes = []
+    lib.paged_attention_max_rep_d.restype = i32
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"libpaged_attention-{digest}.so"
+LIB = KernelLibrary("paged_attention", _bind)
+build = LIB.build         # compile the library if this source is not built yet
+_library = LIB.load       # built and bound once; later calls return it
 
 
-def build() -> Path:
-    """Compile the kernel library if this source has not been built yet.
-    The output is written under a temporary name and renamed into place, so
-    a concurrent or interrupted build never leaves a partial library."""
-    global build_seconds
-    lib = library_path()
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib)
-    build_seconds = time.perf_counter() - t0
-    return lib
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.paged_attention_launch.argtypes = [ptr] * 7 + [i32] * 8 + [ptr]
-        lib.paged_attention_launch.restype = i32
-        lib.paged_attention_max_rep_d.argtypes = []
-        lib.paged_attention_max_rep_d.restype = i32
-        _lib = lib
-    return _lib
+def __getattr__(attr):
+    # build_seconds: wall time of this process's nvcc run (None: not run)
+    if attr == "build_seconds":
+        return LIB.build_seconds
+    raise AttributeError(f"module {__name__!r} has no attribute {attr!r}")
 
 
 def _check(q, k_pages, v_pages, block_tables, lengths, starts):

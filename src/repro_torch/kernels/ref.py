@@ -7,6 +7,8 @@ import math
 
 import torch
 
+from repro_torch.kernels.paged_attention_int8 import dequantize_pages
+
 
 def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths,
                         starts=None):
@@ -42,3 +44,15 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths,
         p = torch.softmax(s, dim=-1)
         out.append(torch.einsum("hs,hsd->hd", p, vq))
     return torch.stack(out).to(q.dtype)
+
+
+def paged_attention_int8_ref(q, k_pages, k_scales, v_pages, v_scales,
+                             block_tables, lengths, starts=None):
+    """Decode attention over an int8 block-paged KV pool: dequantize
+    (``k * scale`` in f32), run ``paged_attention_ref`` in f32, cast to
+    q's dtype. k/v_pages: (K, P, page, D) int8; k/v_scales: (K, P, page, 1)
+    bfloat16; the other arguments as ``paged_attention_ref``."""
+    k = dequantize_pages(k_pages, k_scales)
+    v = dequantize_pages(v_pages, v_scales)
+    return paged_attention_ref(q.float(), k, v, block_tables, lengths,
+                               starts).to(q.dtype)

@@ -8,8 +8,11 @@ mechanisms appear here for real:
     tensors to every instance; a warm spare rejoining after a failure reuses
     them (no re-init, no reload);
   * paged KV — every instance's cache IS a ``PagedKVPool`` (kernel-layout
-    buffers); decode attends through block tables with the paged-attention
-    kernel, prefill is bucketed to power-of-2 lengths;
+    buffers, bf16 or int8 with per-token scales under ``kv_quant``); decode
+    attends through block tables with the paged-attention kernel (its int8
+    counterpart on an int8 pool), prefill is bucketed to power-of-2 lengths
+    — in one pass at admission, or chunk by chunk interleaved with decode
+    steps under ``prefill_chunk``;
   * KV replication — block-granular deltas: only blocks dirtied by
     ``append_token`` since the last pass are copied to the ring target, so
     a decode step ships at most ONE block per active request;
@@ -26,9 +29,10 @@ replicas. ``EngineConfig.recovery`` picks ``kevlarflow`` (warm-spare
 rejoin) or ``standard`` (every victim restarts and the group stalls for
 ``reload_penalty`` clock units).
 
-This port serves the dense family with colocated roles and monolithic
-prefill. The knobs of later slices — chunked prefill, prefix caching, the
-int8 pool, disaggregation and shard-granularity faults — raise until then.
+This port serves the dense family with colocated roles, monolithic or
+chunked prefill, and a bf16 or int8 KV pool. The knobs of later slices —
+prefix caching, disaggregation and shard-granularity faults — raise until
+then.
 """
 from __future__ import annotations
 
@@ -60,10 +64,15 @@ class EngineConfig:
     temperature: float = 0.0
     replicate: bool = True
     replication: str = "delta"   # "delta" (dirty blocks) | "full" (all blocks)
-    # not ported yet: must stay at their defaults
+    # int8 KV pool: pages stored as int8 + per-row bf16 scales, decode runs
+    # through the int8 kernel, replication ships the quantized bytes
     kv_quant: bool = False
+    # chunked prefill: each admitted prompt runs in chunks of this many
+    # tokens (rounded up to a power of two >= the page size), ONE chunk per
+    # mid-prefill slot per engine step, interleaved with the decode batch.
+    # 0 = monolithic prefill inline at admission
     prefill_chunk: int = 0
-    prefix_cache: bool = False
+    prefix_cache: bool = False   # not ported yet: must stay False
     # async double-buffered replication: _replicate STAGES the step's dirty
     # block ids and the copies ship at the top of the NEXT step.
     # flush_replication is the barrier — fail_instance/rejoin_instance flush
@@ -87,7 +96,7 @@ def _check_ported(cfg, ecfg: EngineConfig):
     if cfg.arch_type not in PD.PAGED_FAMILIES:
         raise NotImplementedError(
             f"the port serves {PD.PAGED_FAMILIES}, not {cfg.arch_type!r}")
-    for name in ("kv_quant", "prefill_chunk", "prefix_cache", "disaggregate"):
+    for name in ("prefix_cache", "disaggregate"):
         if getattr(ecfg, name):
             raise NotImplementedError(f"EngineConfig.{name} is not ported yet")
 
@@ -95,19 +104,30 @@ def _check_ported(cfg, ecfg: EngineConfig):
 class FamilyExecutor:
     """The prefill + decode programs for one (cfg, EngineConfig) pair, shared
     by every instance — including a warm spare rejoining after a failure.
-    Decode updates the pool buffers in place."""
+    Decode updates the pool buffers (and an int8 pool's scales, None
+    otherwise) in place; a prefill chunk updates its carry buffers in
+    place."""
 
     def __init__(self, cfg, ecfg: EngineConfig):
         _check_ported(cfg, ecfg)
         temp = ecfg.temperature
 
-        def decode(p, tok, k_pages, v_pages, bt, pos, base, generator):
+        def decode(p, tok, k_pages, v_pages, ks, vs, bt, pos, base,
+                   generator):
             return PD.decode_step_paged(cfg, p, tok, k_pages, v_pages, bt,
                                         pos, generator, base=base,
+                                        k_scales=ks, v_scales=vs,
                                         temperature=temp)
 
         self.decode = decode
         self.prefill = lambda p, toks, n: PD.prefill_bucketed(cfg, p, toks, n)
+        self.prefill_chunk = (
+            lambda p, toks, start, take, kb, vb:
+            PD.prefill_chunk(cfg, p, toks, start, take, kb, vb))
+        # chunk size normalized to a power of two >= the page size, so
+        # chunks tile the power-of-two prefill bucket exactly
+        self.chunk = PD.next_bucket(ecfg.prefill_chunk, lo=cfg.page_size) \
+            if ecfg.prefill_chunk > 0 else 0
 
 
 class RealInstance:
@@ -134,7 +154,8 @@ class RealInstance:
         self.pool = PagedKVPool(
             n_blocks, page, n_layers=len(PD.kv_layer_indices(cfg)),
             n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim, real=True,
-            dtype=PD.kv_dtype(cfg), window=self.window, device=self.device)
+            dtype=PD.kv_dtype(cfg), window=self.window, device=self.device,
+            quantized=ecfg.kv_quant)
         # idle batch slots write/attend into one scratch block, never freed
         self.scratch = self.pool.allocate(SCRATCH_RID, 1)[0].slot
         self.block_table = np.full((B, self.pages_per_seq), self.scratch,
@@ -154,6 +175,11 @@ class RealInstance:
         ex = executor or FamilyExecutor(cfg, ecfg)
         self._decode = ex.decode
         self._prefill = ex.prefill
+        self._prefill_chunk = ex.prefill_chunk
+        self.chunk = ex.chunk
+        # slot -> chunked-prefill job (request, pages, carry buffers,
+        # progress); empty under monolithic prefill
+        self.prefill_jobs: Dict[int, dict] = {}
         self.prefill_total_tokens = 0
 
     def _stamp(self, now: float) -> float:
@@ -175,10 +201,6 @@ class RealInstance:
 
     def free_slots(self) -> List[int]:
         return [i for i, r in enumerate(self.slot_rid) if r < 0]
-
-    def prefill_depth(self) -> int:
-        """Slots mid-chunked-prefill: always 0 under monolithic prefill."""
-        return 0
 
     def _allocate(self, rid: int, n_tokens: int):
         """Allocate primary blocks, evicting hosted replicas under pressure
@@ -215,6 +237,18 @@ class RealInstance:
         req.instance_id = self.instance_id
         self.slot_rid[slot] = req.rid
         self.requests[req.rid] = req
+        if self.chunk:
+            # chunked admission: pages are reserved, compute is deferred —
+            # prefill_step runs one chunk per engine step so the decode
+            # batch never stalls on a whole-prompt forward pass
+            req.state = RequestState.PREFILL
+            k_buf, v_buf = PD.init_chunk_buffers(self.cfg, bucket,
+                                                 device=self.device)
+            self.prefill_jobs[slot] = {
+                "req": req, "refs": refs, "toks": toks, "bucket": bucket,
+                "done": 0, "pages_written": 0, "k_buf": k_buf,
+                "v_buf": v_buf}
+            return True
         logits, k_seq, v_seq = self._prefill(self.params, self._tensor(toks), n)
         # windowed archs: only the window-covering tail pages were allocated
         # (refs[0].logical_idx > 0 for long prompts) — write just those
@@ -249,10 +283,76 @@ class RealInstance:
         req.state = RequestState.DECODE
         self.slot_pos[slot] = req.prompt_len
 
+    # -- chunked prefill -------------------------------------------------------
+    def prefill_depth(self) -> int:
+        """Slots currently mid-chunked-prefill (pending work for the service
+        loop and the /health endpoint)."""
+        return len(self.prefill_jobs)
+
+    def prefill_step(self, now: float = 0.0) -> int:
+        """Advance every mid-prefill slot by ONE chunk — the interleaving
+        policy: each engine step gives each admitted-but-unprefilled slot
+        one chunk of prompt compute next to the ongoing decodes. Returns the
+        number of chunks run."""
+        if not self.alive or not self.prefill_jobs:
+            return 0
+        ran = 0
+        for slot in sorted(self.prefill_jobs):
+            job = self.prefill_jobs[slot]
+            req = job["req"]
+            n = req.prompt_len
+            # short prompts collapse to a single whole-bucket chunk; both
+            # sizes are powers of two, so chunks tile the bucket exactly
+            c = min(self.chunk, job["bucket"])
+            c0 = job["done"]
+            take = min(c, n - c0)
+            logits, _, _ = self._prefill_chunk(
+                self.params, self._tensor(job["toks"][:, c0:c0 + c]), c0,
+                take, job["k_buf"], job["v_buf"])
+            job["done"] = c0 + take
+            req.prefill_progress = job["done"] / n
+            ran += 1
+            final = job["done"] >= n
+            self._write_ready_pages(job, final)
+            if final:
+                self._seat(slot, req, job["refs"], logits, now)
+                del self.prefill_jobs[slot]
+        return ran
+
+    def _write_ready_pages(self, job: dict, final: bool):
+        """Incremental page writes: pages fully covered by the rows prefilled
+        so far land in the pool as soon as their last row is computed (the
+        final chunk also flushes the partial tail page). On a windowed pool
+        only the allocated window-tail pages exist — writes start at the
+        first allocated logical page. Rows are cast to the pool's KV dtype
+        here; an int8 pool's ``write_blocks`` then quantizes them."""
+        page = self.pool.page_size
+        refs = job["refs"]
+        first_page = refs[0].logical_idx
+        if final:
+            ready = len(refs)
+        else:
+            ready = min(max(0, job["done"] // page - first_page), len(refs))
+        lo = job["pages_written"]
+        if ready <= lo:
+            return
+        kv_dt = PD.kv_dtype(self.cfg)
+        span0 = (first_page + lo) * page
+        span1 = (first_page + ready) * page
+        self.pool.write_blocks(
+            [r.slot for r in refs[lo:ready]],
+            *PD.pack_pages(job["k_buf"][:, span0:span1].to(kv_dt),
+                           job["v_buf"][:, span0:span1].to(kv_dt),
+                           ready - lo, page))
+        job["pages_written"] = ready
+
     # -- one continuous-batching iteration ------------------------------------
     def step(self, now: float = 0.0) -> List[Request]:
         if not self.alive:
             return []
+        # mid-chunked-prefill slots (PREFILL state) hold pages but no first
+        # token yet — they join the decode batch the step after their final
+        # chunk lands
         active = [i for i, r in enumerate(self.slot_rid)
                   if r >= 0 and self.requests[r].state == RequestState.DECODE]
         if not active:
@@ -287,10 +387,12 @@ class RealInstance:
                     table[0].logical_idx * self.pool.page_size
             else:
                 self.block_table[i, ref.logical_idx] = ref.slot
+        pool = self.pool
         nxt, _ = self._decode(
-            self.params, self._tensor(toks), self.pool.k, self.pool.v,
-            self._tensor(self.block_table), self._tensor(self.slot_pos),
-            self._tensor(self.slot_base), self._generator)
+            self.params, self._tensor(toks), pool.k, pool.v, pool.k_scale,
+            pool.v_scale, self._tensor(self.block_table),
+            self._tensor(self.slot_pos), self._tensor(self.slot_base),
+            self._generator)
         nxt = nxt.cpu().numpy()        # the step's single host sync
         finished = []
         for i in active:
@@ -310,6 +412,7 @@ class RealInstance:
         """Free a request's engine slot + primary blocks."""
         if rid in self.requests:
             slot = self.slot_rid.index(rid)
+            self.prefill_jobs.pop(slot, None)
             self.slot_rid[slot] = -1
             self.slot_pos[slot] = 0
             self.slot_base[slot] = 0
@@ -375,6 +478,7 @@ class RealInstance:
     def fail(self):
         self.alive = False
         self.pending_retires.clear()   # a dead primary sends no retires
+        self.prefill_jobs.clear()      # mid-chunk work is lost with the node
         # a dead instance holds no requests (its memory is lost) — the
         # engine captures the victims first
         self.requests = {}
@@ -525,6 +629,9 @@ class RealEngine:
         for inst in alive:
             self.active_request_steps += len(inst.requests)
             progressed += len(inst.requests)
+            # one prompt chunk per mid-prefill slot, then the decode batch:
+            # admissions interleave with generation instead of stalling it
+            inst.prefill_step(self.t)
             finished = inst.step(self.t)
             # retire hosted replicas of pages the primary recycled this step
             # BEFORE the delta pass, so replica tables mirror the window

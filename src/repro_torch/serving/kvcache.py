@@ -7,8 +7,9 @@ eviction. The pool carries real torch buffers on its device when an engine
 runs real compute, or pure metadata otherwise — the allocation/replication
 logic is identical.
 
-This port covers the unquantized pool without a prefix cache or state
-blobs; those arrive with the engine knobs that need them.
+The pool is unquantized, or int8 with per-(layer, head, token) scales
+(``quantized=True``). This port has no prefix cache or state blobs yet;
+those arrive with the engine knobs that need them.
 """
 from __future__ import annotations
 
@@ -16,6 +17,10 @@ import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import torch
+
+from repro_torch.kernels.paged_attention_int8 import (SCALE_DTYPE,
+                                                      dequantize_pages,
+                                                      quantize_pages)
 
 
 @dataclasses.dataclass
@@ -36,14 +41,22 @@ class PagedKVPool:
       (n_layers, n_kv_heads, n_blocks, page_size, head_dim)
     so one block (an n_blocks-axis slot) spans all layers — the replication
     unit — and each layer's (K, P, page, D) view feeds the kernel directly.
+
+    int8 mode (``quantized=True``): k/v are int8 with symmetric scales in
+    (n_layers, n_kv_heads, n_blocks, page_size, 1) SCALE_DTYPE side tensors
+    ``k_scale``/``v_scale`` (None on an unquantized pool). Block writes
+    quantize; replication ships the int8 bytes and scales verbatim, so a
+    promoted replica is bit-identical on the quantized representation.
     """
 
     def __init__(self, n_blocks: int, page_size: int, n_layers: int = 0,
                  n_kv_heads: int = 0, head_dim: int = 0, real: bool = False,
-                 dtype=torch.bfloat16, window: int = 0, device="cpu"):
+                 dtype=torch.bfloat16, window: int = 0, device="cuda",
+                 quantized: bool = False):
         self.n_blocks = n_blocks
         self.page_size = page_size
         self.real = real
+        self.quantized = quantized
         # sliding-window ring view: when window > 0 each request keeps only
         # the blocks that can still fall inside the attention window; blocks
         # fully below it are recycled. BlockRef.logical_idx is the ABSOLUTE
@@ -56,18 +69,27 @@ class PagedKVPool:
         self._tables: Dict[int, List[BlockRef]] = {}      # rid -> blocks
         # replica blocks hosted on behalf of peers: (peer_node, rid) -> slots
         self._replica_tables: Dict[Tuple[int, int], List[BlockRef]] = {}
+        self.k_scale = self.v_scale = None
         if real:
             shape = (n_layers, n_kv_heads, n_blocks, page_size, head_dim)
+            if quantized:
+                dtype = torch.int8
+                # scale 1, so zeroed pages dequantize to exact zeros
+                self.k_scale = torch.ones(shape[:-1] + (1,),
+                                          dtype=SCALE_DTYPE, device=device)
+                self.v_scale = torch.ones_like(self.k_scale)
             self.k = torch.zeros(shape, dtype=dtype, device=device)
             self.v = torch.zeros(shape, dtype=dtype, device=device)
 
     @property
     def block_nbytes(self) -> int:
-        """Bytes of one replication message (k+v, all layers)."""
+        """Bytes of one replication message (k+v, all layers; an int8 pool
+        ships its scale rows too)."""
         if not self.real:
             return 0
-        per_slot = self.k.numel() // self.n_blocks
-        return 2 * per_slot * self.k.element_size()
+        tensors = [self.k] + ([self.k_scale] if self.quantized else [])
+        return sum(2 * t.numel() // self.n_blocks * t.element_size()
+                   for t in tensors)
 
     # -- capacity ----------------------------------------------------------
     @property
@@ -282,25 +304,52 @@ class PagedKVPool:
 
     def write_blocks(self, slots: List[int], k_blocks, v_blocks):
         """Bulk write (admission path): k/v_blocks (L, K, n, page, D) into
-        ``slots``, in place, cast to the pool dtype."""
+        ``slots``, in place — cast to the pool dtype, or quantized per token
+        row on an int8 pool (payload and scales land together)."""
         assert self.real
         idx = self._index(slots)
+        if self.quantized:
+            for pool, scale, blocks in ((self.k, self.k_scale, k_blocks),
+                                        (self.v, self.v_scale, v_blocks)):
+                q, s = quantize_pages(blocks)
+                pool.index_copy_(2, idx, q)
+                scale.index_copy_(2, idx, s)
+            return
         self.k.index_copy_(2, idx, k_blocks.to(self.k.dtype))
         self.v.index_copy_(2, idx, v_blocks.to(self.v.dtype))
 
     def read_block(self, slot: int):
-        """(L, K, page, D) k/v views of one block."""
+        """(L, K, page, D) k/v of one block: views, or f32 dequantized on
+        an int8 pool (``read_block_quantized`` gives the raw payload)."""
         assert self.real
+        if self.quantized:
+            return (dequantize_pages(self.k[:, :, slot],
+                                     self.k_scale[:, :, slot]),
+                    dequantize_pages(self.v[:, :, slot],
+                                     self.v_scale[:, :, slot]))
         return self.k[:, :, slot], self.v[:, :, slot]
+
+    def read_block_quantized(self, slot: int):
+        """Raw payload of one int8 block: (k int8, k_scale, v int8,
+        v_scale) — exactly the bytes a replication message carries."""
+        assert self.real and self.quantized
+        return (self.k[:, :, slot], self.k_scale[:, :, slot],
+                self.v[:, :, slot], self.v_scale[:, :, slot])
 
     def copy_blocks_to(self, other: "PagedKVPool",
                        src_slots: List[int], dst_slots: List[int]):
         """Block replication (the paper's yellow arrow), batched: this
         step's dirty blocks as one gather
         + one in-place scatter per buffer, on the current stream (ordered
-        after the decode that wrote the source pages)."""
+        after the decode that wrote the source pages). An int8 pool ships
+        its payload and scales verbatim, with no requantization."""
         if not (self.real and other.real) or not src_slots:
             return
+        assert self.quantized == other.quantized, \
+            "replication peers must agree on KV quantization"
         src, dst = self._index(src_slots), other._index(dst_slots)
-        other.k.index_copy_(2, dst, self.k.index_select(2, src))
-        other.v.index_copy_(2, dst, self.v.index_select(2, src))
+        names = ("k", "v", "k_scale", "v_scale") if self.quantized \
+            else ("k", "v")
+        for name in names:
+            getattr(other, name).index_copy_(
+                2, dst, getattr(self, name).index_select(2, src))

@@ -10,7 +10,9 @@ versioned fault-injection admin API (``POST /v1/admin/fault`` /
 
 The model runs at the config's full size on the card (``--device cuda``,
 the default); ``--device cpu --reduced`` serves the reduced config on the
-CPU.
+CPU. ``--kv-quant`` serves from an int8 KV pool and ``--prefill-chunk N``
+runs prompts in chunks of N tokens interleaved with decode steps; either
+works alone or with the other.
 """
 from __future__ import annotations
 
@@ -325,6 +327,13 @@ def main():
     ap.add_argument("--reduced", action="store_true",
                     help="serve the config's reduced variant (2 layers, "
                          "d_model 256) — the size the CPU can run")
+    ap.add_argument("--kv-quant", action="store_true",
+                    help="int8 KV pool: quantized pages + scales, int8 "
+                         "decode kernel, ~2x smaller replication messages")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="chunked prefill: run prompts through the pool in "
+                         "chunks of this many tokens, interleaved with "
+                         "decode steps (0 = monolithic prefill)")
     ap.add_argument("--recovery", default="kevlarflow",
                     choices=["kevlarflow", "standard"],
                     help="fail_instance policy: promote replicas + reroute "
@@ -343,7 +352,9 @@ def main():
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    ecfg = EngineConfig(recovery=args.recovery,
+    ecfg = EngineConfig(kv_quant=args.kv_quant,
+                        prefill_chunk=args.prefill_chunk,
+                        recovery=args.recovery,
                         auto_rejoin=args.auto_rejoin,
                         rejoin_delay=args.rejoin_delay,
                         reload_penalty=args.reload_penalty,
@@ -353,7 +364,9 @@ def main():
                        device=args.device)
     print(f"KevlarFlow serving {cfg.name} on :{httpd.server_address[1]} "
           f"({args.instances} instances, {args.recovery} recovery, "
-          f"{args.device}). POST /v1/completions")
+          f"{args.device}, {'int8' if args.kv_quant else 'bf16'} KV pool, "
+          f"prefill chunk {args.prefill_chunk or 'off'}). "
+          f"POST /v1/completions")
     try:
         httpd.serve_forever()
     finally:

@@ -30,7 +30,8 @@ def _leaves(tree, prefix=()):
 def test_conversion_is_bit_exact(dtype):
     jcfg = dataclasses.replace(jax_config("llama3-8b").reduced(), dtype=dtype)
     jparams = api.init_params(jcfg, jax.random.PRNGKey(0))
-    tparams = from_jax_numpy(jax.tree_util.tree_map(np.asarray, jparams))
+    tparams = from_jax_numpy(jax.tree_util.tree_map(np.asarray, jparams),
+                             device="cpu")
     jl = dict(_leaves(jparams))
     tl = dict(_leaves(tparams))
     assert jl.keys() == tl.keys()
@@ -52,7 +53,8 @@ def test_layer_stacked_layout_matches_port_init():
     jcfg = jax_config("llama3-8b").reduced()
     cfg = get_config("llama3-8b").reduced()
     conv = from_jax_numpy(jax.tree_util.tree_map(
-        np.asarray, api.init_params(jcfg, jax.random.PRNGKey(1))))
+        np.asarray, api.init_params(jcfg, jax.random.PRNGKey(1))),
+        device="cpu")
     gen = torch.Generator().manual_seed(0)
     own = transformer.init_params(cfg, gen, device="cpu")
     cl, ol = dict(_leaves(conv)), dict(_leaves(own))

@@ -61,7 +61,8 @@ def test_token_streams_match_reference_engine(cfg):
     jeng = JRealEngine(jcfg, JEngineConfig(max_slots=4, max_seq=max_seq,
                                            replicate=False),
                        n_instances=1, seed=0)
-    params = from_jax_numpy(jax.tree_util.tree_map(np.asarray, jeng.params))
+    params = from_jax_numpy(jax.tree_util.tree_map(np.asarray, jeng.params),
+                            device="cpu")
     teng = RealEngine(cfg, EngineConfig(max_slots=4, max_seq=max_seq,
                                         replicate=False),
                       n_instances=1, device="cpu", params=params)
@@ -246,8 +247,7 @@ def test_fail_instance_idempotent(cfg):
 
 
 def test_unported_knobs_raise(cfg):
-    for kw in (dict(kv_quant=True), dict(prefill_chunk=8),
-               dict(prefix_cache=True), dict(disaggregate=True)):
+    for kw in (dict(prefix_cache=True), dict(disaggregate=True)):
         with pytest.raises(NotImplementedError):
             _engine(cfg, **kw)
 
@@ -264,7 +264,8 @@ def test_windowed_serving_matches_reference_and_fails_over(cfg):
     jeng = JRealEngine(jcfg, JEngineConfig(max_slots=4, max_seq=96,
                                            replicate=False),
                        n_instances=1, seed=0)
-    params = from_jax_numpy(jax.tree_util.tree_map(np.asarray, jeng.params))
+    params = from_jax_numpy(jax.tree_util.tree_map(np.asarray, jeng.params),
+                            device="cpu")
     prompts = _prompts(cfg.vocab_size, 2, seed=3, lo=10, hi=30)
 
     def submit(eng, cls):

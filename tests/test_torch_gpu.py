@@ -15,7 +15,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
-from repro_torch.kernels.ref import paged_attention_ref  # noqa: E402
+from repro_torch.kernels import paged_attention_int8 as PA8  # noqa: E402
+from repro_torch.kernels.ref import (paged_attention_int8_ref,  # noqa: E402
+                                     paged_attention_ref)
 from repro_torch.models import paged_decode as PD  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 
@@ -87,7 +89,7 @@ def test_decode_step_runs_through_kernel(card):
                 for k, v in tree.items()}
 
     gpu_params = to_card(params)
-    kp, vp = PD.init_pages(cfg, 17, cfg.page_size)
+    kp, vp = PD.init_pages(cfg, 17, cfg.page_size, device="cpu")
     tables = torch.arange(1, 17, dtype=torch.int32).reshape(4, 4)
     pos = torch.tensor([3, 9, 17, 30], dtype=torch.int32)
     tok = torch.tensor([5, 7, 11, 13], dtype=torch.int32)
@@ -100,3 +102,83 @@ def test_decode_step_runs_through_kernel(card):
     assert PA.launches == before + cfg.n_layers
     torch.testing.assert_close(gpu[1].cpu(), cpu[1], rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(kg.cpu(), kp, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (8, 32, 8, 128, 16, 16),   # llama3-8b serving shape
+    (4, 4, 2, 64, 8, 5),       # reduced test config (page 8, D 64)
+])
+def test_paged_attention_int8_kernel_matches_plain(card, dtype, shape):
+    """The int8 kernel against its plain version on the same quantized pool
+    (one all-zero token row, scale 1), with and without window starts."""
+    q, kp, vp, bt, ln, st = _case(*shape, torch.float32)
+    kp[0, 0, 0] = 0.0
+    kq, ks = PA8.quantize_pages(kp)
+    vq, vs = PA8.quantize_pages(vp)
+    assert float(ks[0, 0, 0]) == 1.0
+    q = q.to(dtype)
+    for starts in (None, st):
+        before = PA8.launches
+        got = PA8.paged_attention_int8(q, kq, ks, vq, vs, bt, ln, starts)
+        torch.cuda.synchronize()
+        assert PA8.launches == before + 1
+        want = paged_attention_int8_ref(q, kq, ks, vq, vs, bt, ln, starts)
+        assert got.dtype == dtype and got.shape == q.shape
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_quantize_pages_on_card_matches_cpu(card):
+    x = torch.randn(8, 33, 16, 128, generator=torch.Generator()
+                    .manual_seed(0)) * 7
+    x[0, 0, 0] = 0.0
+    q_cpu, s_cpu = PA8.quantize_pages(x)
+    q_gpu, s_gpu = PA8.quantize_pages(x.to(card))
+    assert torch.equal(q_gpu.cpu(), q_cpu)
+    assert torch.equal(s_gpu.cpu().view(torch.int16), s_cpu.view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_int8_decode_step_runs_through_kernel(card):
+    """One paged decode step of the reduced config on an int8 pool on the
+    card launches the int8 kernel once per layer (the bf16 kernel never)
+    and matches the same step on the CPU."""
+    cfg = dataclasses.replace(get_config("llama3-8b").reduced(),
+                              dtype="float32", kv_dtype="float32")
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                     device="cpu")
+
+    def to_card(tree):
+        return {k: to_card(v) if isinstance(v, dict) else v.to(card)
+                for k, v in tree.items()}
+
+    gpu_params = to_card(params)
+    shape = (cfg.n_layers, cfg.n_kv_heads, 17, cfg.page_size, cfg.head_dim)
+    pools = [PA8.quantize_pages(torch.randn(
+        shape, generator=torch.Generator().manual_seed(s))) for s in (1, 2)]
+    (kp, ks), (vp, vs) = pools
+    tables = torch.arange(1, 17, dtype=torch.int32).reshape(4, 4)
+    pos = torch.tensor([3, 9, 17, 30], dtype=torch.int32)
+    tok = torch.tensor([5, 7, 11, 13], dtype=torch.int32)
+    gpu_pool = [t.to(card) for t in (kp, vp, ks, vs)]   # copies
+    cpu = PD.decode_step_paged(cfg, params, tok, kp, vp, tables, pos,
+                               k_scales=ks, v_scales=vs)
+    before, before_bf16 = PA8.launches, PA.launches
+    kg, vg, ksg, vsg = gpu_pool
+    gpu = PD.decode_step_paged(cfg, gpu_params, tok.to(card), kg, vg,
+                               tables.to(card), pos.to(card), k_scales=ksg,
+                               v_scales=vsg)
+    torch.cuda.synchronize()
+    assert PA8.launches == before + cfg.n_layers
+    assert PA.launches == before_bf16
+    torch.testing.assert_close(gpu[1].cpu(), cpu[1], rtol=1e-4, atol=1e-4)
+    # the rows this step wrote agree within one quantization step; every
+    # other byte is the same
+    step = torch.maximum(ksg.cpu().float(), ks.float())
+    deq = lambda p, s: p.float() * s.float()  # noqa: E731
+    assert ((deq(kg.cpu(), ksg.cpu()) - deq(kp, ks)).abs()
+            <= step + 1e-6).all()
+    assert (kg.cpu() != kp).any(dim=(1, 4)).sum() <= cfg.n_layers * 4

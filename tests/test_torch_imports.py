@@ -27,7 +27,7 @@ import chip_smoke
 assert not [m for m in sys.modules
             if (m == "jax" or m.startswith(("jax.", "repro.")))
             and sys.modules[m] is not None]
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -37,7 +37,11 @@ def test_port_and_chip_smoke_import_without_jax_or_reference():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, cwd=ROOT, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15      # every submodule imported
+    names = set(out.stdout.split())
+    assert len(names) >= 17                       # every submodule imported
+    assert {"repro_torch.kernels.build",
+            "repro_torch.kernels.paged_attention_int8",
+            "repro_torch.kernels.ops"} <= names
 
 
 FORBIDDEN = re.compile(

@@ -162,7 +162,8 @@ def test_windowed_allocate_evicts_replicas_after_recycling():
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_block_nbytes_matches_reference(dtype):
     shape = dict(n_layers=2, n_kv_heads=2, head_dim=64)
-    ours = PagedKVPool(9, 8, real=True, dtype=getattr(torch, dtype), **shape)
+    ours = PagedKVPool(9, 8, real=True, dtype=getattr(torch, dtype),
+                       device="cpu", **shape)
     ref = JPool(9, 8, real=True, dtype=dtype, **shape)
     assert ours.block_nbytes == ref.block_nbytes == 2 * 2 * 2 * 8 * 64 * (
         2 if dtype == "bfloat16" else 4)
@@ -225,7 +226,7 @@ def test_block_io_bit_exact():
     """write_blocks / read_block / copy_blocks_to move bytes verbatim."""
     rng = np.random.default_rng(1)
     shape = dict(n_layers=2, n_kv_heads=2, head_dim=64, real=True,
-                 dtype=torch.bfloat16)
+                 dtype=torch.bfloat16, device="cpu")
     a, b = PagedKVPool(9, 8, **shape), PagedKVPool(9, 8, **shape)
     k = torch.from_numpy(rng.standard_normal((2, 2, 3, 8, 64)).astype(
         np.float32)).bfloat16()

@@ -29,7 +29,8 @@ def setup():
     jcfg = dataclasses.replace(jax_config("llama3-8b").reduced(), **F32)
     cfg = dataclasses.replace(get_config("llama3-8b").reduced(), **F32)
     jparams = api.init_params(jcfg, jax.random.PRNGKey(0))
-    tparams = from_jax_numpy(jax.tree_util.tree_map(np.asarray, jparams))
+    tparams = from_jax_numpy(jax.tree_util.tree_map(np.asarray, jparams),
+                             device="cpu")
     return cfg, jcfg, tparams, jparams
 
 

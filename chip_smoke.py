@@ -7,9 +7,10 @@ Phases (each raises, and the script exits non-zero, if its check fails):
 
   1. device   — a CUDA card is required; prints its name and power limit;
                 TF32 off for matmuls and convolutions.
-  2. build    — compiles both kernel libraries (paged attention, bf16 and
-                int8 pools) from src/repro_torch/kernels/csrc/ with nvcc
-                (sm_90a), one nvcc process per source, started together.
+  2. build    — compiles the three kernel libraries (paged attention, bf16
+                and int8 pools; the Mamba-2 SSD scan) from
+                src/repro_torch/kernels/csrc/ with nvcc (sm_90a), one nvcc
+                process per source, started together.
   3. kernel   — holds the bf16 paged-attention kernel against its plain
                 PyTorch version at the serving shape (B=8, H=32, K=8, D=128,
                 page 16, 16 pages, bf16, ragged lengths, with and without
@@ -20,20 +21,34 @@ Phases (each raises, and the script exits non-zero, if its check fails):
                 (q in bf16 and f32, both shapes, one all-zero row with
                 scale 1), and quantize_pages on the card against the CPU,
                 bit for bit.
-  5. serving  — the port's HTTP server with full-width Llama-3.1-8B (random
+  5. kernel (ssd_scan) — the SSD scan kernel against its plain sequential
+                version and the plain chunked form, at the full-width
+                mamba2-130m shape (b 8, s 512, h 24, p 64, n 128, chunk 256;
+                B and C bf16, then f32; with an initial state), a ragged
+                chunk = s = 200, and the reduced shape (h 16, p 32, n 32,
+                chunk 32); times kernel and plain versions in a CUDA graph.
+  6. serving  — the port's HTTP server with full-width Llama-3.1-8B (random
                 weights from a seeded torch.Generator), 2 instances, ring
                 replication on; concurrent completions, greedy determinism,
                 TTFT / per-token latency / tokens per second.
-  6. failover — the same prompts again; an instance kill through
+  7. failover — the same prompts again; an instance kill through
                 /v1/admin/fault while they decode; every stream must equal
                 the failure-free one, with at least one migration.
-  7. decode profile — one instance's decode step called directly: wall
+  8. decode profile — one instance's decode step called directly: wall
                 time, device-busy time and op count (torch.profiler).
-  8.-10. serving, failover and decode profile again on a second service
+  9.-11. serving, failover and decode profile again on a second service
                 built from the SAME weights with the int8 KV pool and
                 chunked prefill (chunks of 64); the kill may restart only
                 requests caught mid-prefill on the victim.
-  11. summary — one JSON line of kernels, the card line, and the final
+  12. mamba2 generation — full-width mamba2-130m (bf16, random weights from
+                torch.Generator seed 0) through api.prefill and
+                api.decode_step: 8 prompts of 512 tokens (2 chunks), then 8
+                of 200 (one ragged chunk), 64 greedy tokens each, twice:
+                identical streams, exactly n_layers scan launches per
+                prefill and no plain scan; in f32, kernel prefill against
+                the plain chunked form, and forward at t against prefill(:t)
+                plus one decode step; prefill and decode-step profiles.
+  13. summary — one JSON line of kernels, the card line, and the final
                 {"ok": true, "device": ...} line.
 
 Each path's kernel launch counts are set to 0 just before the path and read
@@ -43,6 +58,8 @@ not counted.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -62,8 +79,11 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
 from repro_torch.kernels import paged_attention_int8 as PA8  # noqa: E402
+from repro_torch.kernels import ref as REF  # noqa: E402
+from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.kernels.ref import (paged_attention_int8_ref,  # noqa: E402
-                                     paged_attention_ref)
+                                     paged_attention_ref, ssd_scan_ref)
+from repro_torch.models import api, ssm  # noqa: E402
 from repro_torch.serving.engine import EngineConfig  # noqa: E402
 from repro_torch.serving.server import serve  # noqa: E402
 
@@ -73,6 +93,26 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,         # dense tensor-core bf16
 TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-5}
 LAYERS_PER_STEP = 32                          # one launch per layer per step
 SERVE_PROMPT_LENS = [16, 48, 96, 150, 200]
+SSD_SERVE = (8, 512, 24, 64, 128, 256)        # b, s, h, p, n, chunk
+SSD_REDUCED = (2, 96, 16, 32, 32, 32)
+SSD_TOL = 2e-4        # rtol = atol: the reference's kernel-vs-oracle sweep
+MAMBA_BATCH, MAMBA_PROMPTS, MAMBA_NEW = 8, (512, 200), 64
+# f32 prefill logits, scan kernel against the plain chunked form. At the
+# config's chunk of 256 the plain form's cumulative log decays reach
+# hundreds (a = dt * A, A down to -16), where the f32 spacing (~3e-5) is
+# lost from every exp(cum_i - cum_j); at chunk 32, the length of the
+# kernel's sub-chunks, the sums stay small. Hence two limits: tight against
+# chunk 32, loose against chunk 256.
+MAMBA_PREFILL_TOL = {32: 5e-4, 256: 5e-3}
+# forward at t against prefill(:t) + one decode step, f32. As the model
+# runs, the prefill stores the conv state in bf16 (as the reference does),
+# so the decode step sees the last three conv rows of every layer rounded
+# to bf16; through 24 layers of this random model that moves the logits by
+# up to ~5% of their range (on the card: 6.8e-2 at t = 511 and 0.136 at
+# t = 199, |logits| <= 2.8; with f32 conv rows 5.2e-5 and 1.7e-5). The
+# limit for the model as it runs is set at 9% of that range; with the conv
+# state kept in f32 the same check isolates the algorithm at 1e-3.
+MAMBA_SPLIT_TOL = {torch.bfloat16: 0.25, torch.float32: 1e-3}
 
 
 def kname(mod) -> str:
@@ -305,7 +345,108 @@ def kernel_int8_phase() -> dict:
             "bound_ms": bms, "bound_by": by, "library_ms": None}
 
 
-# -- 5.-10. serving, failover and decode profile, per pool ---------------------
+# -- 5. kernel (ssd_scan) ------------------------------------------------------
+
+def ssd_case(shape, bc_dtype, seed, with_h0=False):
+    """Scan inputs on the card at the reference sweep's scales (x * 0.5,
+    a = -|N(0,1)| * 0.3, B and C * 0.3); B and C are strided halves of one
+    (b, s, 2n) tensor, as the model's are slices of the conv output."""
+    b, s, h, p, n, _ = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(scale, *size):
+        return torch.randn(size, generator=g, device="cuda") * scale
+
+    xdt, a = rnd(0.5, b, s, h, p), -rnd(0.3, b, s, h).abs()
+    bc = rnd(0.3, b, s, 2 * n).to(bc_dtype)
+    h0 = rnd(1.0, b, h, p, n) if with_h0 else None
+    return xdt, a, bc[..., :n], bc[..., n:], h0
+
+
+def ssd_bound_ms(xdt, B, h0=None):
+    """Least time for one scan: the bytes it must move (x, a, B, C, y, the
+    final state and h0, each once) over the memory rate, or its least
+    operations — per position and head one multiply-add per state element
+    for the update and one for the output, 4 * b * s * h * p * n, on the
+    f32 CUDA cores — over their peak rate; the larger."""
+    b, s, h, p = xdt.shape
+    n = B.shape[-1]
+    state = b * h * p * n * 4
+    nbytes = (2 * xdt.numel() * 4 + b * s * h * 4
+              + 2 * b * s * n * B.element_size()
+              + state * (2 if h0 is not None else 1))
+    flops = 4 * b * s * h * p * n
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[torch.float32]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def ssd_error(got, want):
+    """(max |got - want|, max of |got - want| - (atol + rtol |want|)): the
+    second is <= 0 when every element is inside the limit."""
+    diff = (got - want).abs()
+    return (float(diff.max()),
+            float((diff - SSD_TOL * (1 + want.abs())).max()))
+
+
+def ssd_scan_phase() -> dict:
+    cases = [(SSD_SERVE, torch.bfloat16, False),
+             (SSD_SERVE, torch.float32, False),
+             (SSD_SERVE, torch.bfloat16, True),
+             ((8, 200, 24, 64, 128, 200), torch.bfloat16, False),  # ragged
+             (SSD_REDUCED, torch.float32, False),
+             (SSD_REDUCED, torch.float32, True),
+             (SSD_REDUCED, torch.bfloat16, False)]
+    max_err = 0.0
+    for i, (shape, bc_dtype, with_h0) in enumerate(cases):
+        xdt, a, B, C, h0 = ssd_case(shape, bc_dtype, seed=i,
+                                    with_h0=with_h0)
+        chunk = shape[-1]
+        y, hf = SSD.ssd_scan(xdt, a, B, C, chunk=chunk, h0=h0)
+        torch.cuda.synchronize()
+        plain = {"sequential": ssd_scan_ref(xdt, a, B, C, h0),
+                 "chunked": ssm.ssd_chunked_plain(xdt, a, B, C, h0, chunk)}
+        for what, (ry, rh) in plain.items():
+            err_y, over_y = ssd_error(y, ry)
+            err_h, over_h = ssd_error(hf, rh)
+            print(f"ssd_scan check {shape} B/C {bc_dtype} h0={with_h0} vs "
+                  f"plain {what}: max_abs_err y {err_y:.3e}, state "
+                  f"{err_h:.3e} (limit {SSD_TOL:.0e} + {SSD_TOL:.0e}|want|)")
+            check(math.isfinite(err_y + err_h) and max(over_y, over_h) <= 0,
+                  f"ssd_scan disagrees with the plain {what} version")
+            if what == "sequential":
+                max_err = max(max_err, err_y, err_h)
+    # timing at the serving shape; 2 sets x 59 MB > the 50 MB L2
+    sets = [ssd_case(SSD_SERVE, torch.bfloat16, seed=100 + j)[:4]
+            for j in range(2)]
+    chunk = SSD_SERVE[-1]
+
+    def kernel(x, a, B, C):
+        return SSD.ssd_scan(x, a, B, C, chunk=chunk)
+
+    def chunked(x, a, B, C):
+        return ssm.ssd_chunked_plain(x, a, B, C, chunk=chunk)
+
+    ms = graph_ms(kernel, sets)
+    plain_ms = graph_ms(ssd_scan_ref, sets, reps=5)
+    chunked_ms = graph_ms(chunked, sets, reps=10)
+    eager_ms = time_ms(kernel, sets)
+    bms, by = ssd_bound_ms(sets[0][0], sets[0][2])
+    print(f"ssd_scan at serving shape, device time (CUDA graph): "
+          f"{ms * 1e3:.2f} us; plain sequential {plain_ms * 1e3:.2f} us; "
+          f"plain chunked {chunked_ms * 1e3:.2f} us; bound {bms * 1e3:.2f} "
+          f"us ({by})")
+    print(f"ssd_scan at serving shape, eager call incl. host dispatch: "
+          f"{eager_ms * 1e3:.2f} us")
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:23",
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None}
+
+
+# -- 6.-11. serving, failover and decode profile, per pool ---------------------
 
 class Client:
     def __init__(self, port: int):
@@ -592,11 +733,218 @@ def serving_phases(card: str) -> dict:
     return {"paged_attention": bf16, "paged_attention_int8": int8}
 
 
-def build_all():
-    """Both kernel libraries from source, one nvcc process per source, all
-    started together."""
+# -- 12. mamba2 generation -------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_scan_calls():
+    """Counts calls of the scan's plain versions while the block runs:
+    ``ssd_scan_ref`` (where ``ops.ssd_scan`` would send a CPU tensor) and
+    ``ssm.ssd_chunked_plain`` (``ssd_chunked``'s CPU path)."""
+    calls = [0]
+    orig = REF.ssd_scan_ref, ssm.ssd_chunked_plain
+
+    def counted(fn):
+        def call(*args, **kw):
+            calls[0] += 1
+            return fn(*args, **kw)
+        return call
+
+    REF.ssd_scan_ref, ssm.ssd_chunked_plain = map(counted, orig)
+    try:
+        yield calls
+    finally:
+        REF.ssd_scan_ref, ssm.ssd_chunked_plain = orig
+
+
+@contextlib.contextmanager
+def scan_through_plain_form():
+    """The model's scan runs the plain chunked form (for comparison only)."""
+    orig = ssm.ssd_chunked
+    ssm.ssd_chunked = ssm.ssd_chunked_plain
+    try:
+        yield
+    finally:
+        ssm.ssd_chunked = orig
+
+
+def generate(cfg, params, tokens, n_new):
+    """Greedy decoding through the model API: api.prefill, then n_new - 1
+    api.decode_step calls. Returns (tokens (b, n_new) on the host, the
+    prefill's logits, prefill wall s, decode wall s per step)."""
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    mods = (PA, PA8)
+    logits, cache, pos = api.prefill(cfg, params, {"tokens": tokens})
+    first = logits
+    tok = logits.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = [tok]
+    for i in range(n_new - 1):
+        logits, cache = api.decode_step(cfg, params, tok, cache, pos + i,
+                                        seq_len=pos + n_new)
+        tok = logits.argmax(-1).to(torch.int32)
+        out.append(tok)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return torch.stack(out, 1).cpu(), first, t1 - t0, (t2 - t1) / (n_new - 1)
+
+
+def profile_device(fn, n):
+    """``fn`` run ``n`` times on the card: wall ms per call (synchronised
+    host clock), then under torch.profiler the device-side entries only (an
+    aten op's self device time repeats the time of the kernels it launched,
+    which are listed as entries too). Returns (wall ms, busy ms, kernel
+    launches per call, the entries)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / n / 1e3
+    return wall, busy, sum(e.count for e in kernels) / n, kernels
+
+
+def mamba2_profile(card, what, fn, n):
+    wall, busy, launches, kernels = profile_device(fn, n)
+    scan = sum(e.self_device_time_total for e in kernels
+               if "ssd_scan_kernel" in e.key) / n / 1e3
+    m = {"wall_ms": wall, "device_busy_ms": busy, "ssd_scan_kernel_ms": scan,
+         "kernel_launches": launches,
+         "device_idle_share": 1 - busy / wall if busy else None}
+    print(f"mamba2 {what} profile [{card}]: " + json.dumps(m))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"  device ms/call {e.self_device_time_total / n / 1e3:8.3f}"
+              f"  launches/call {e.count / n:7.1f}  {e.key[:90]}")
+    if not busy:
+        print(f"mamba2 {what} profile: the profiler saw no device time "
+              "(device busy not measured)")
+
+
+def mamba2_phase(card: str) -> int:
+    """Full-width mamba2-130m through the model API. Returns the scan
+    kernel's launches on the counted generation runs."""
+    cfg = get_config("mamba2-130m")
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    print(f"model {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.ssm_n_heads} SSD heads x {cfg.ssm_head_dim}, state "
+          f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}, vocab {cfg.vocab_size}, "
+          f"{cfg.n_params() / 1e6:.1f} M params, {cfg.dtype}, random weights "
+          f"(torch.Generator seed 0), made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(1)
+    batches = {s: torch.as_tensor(
+        rng.integers(1, cfg.vocab_size, (MAMBA_BATCH, s)), dtype=torch.int32,
+        device="cuda") for s in MAMBA_PROMPTS}
+    generate(cfg, params, batches[MAMBA_PROMPTS[-1]], 3)   # warm-up
+    launches = 0
+    for s, toks in batches.items():
+        runs = []
+        for _ in range(2):
+            SSD.launches = PA.launches = PA8.launches = 0
+            with plain_scan_calls() as plain:
+                out = generate(cfg, params, toks, MAMBA_NEW)
+            n = SSD.launches
+            print(f"[mamba2 {s}] ssd_scan launches: {n} (one prefill); plain "
+                  f"scans: {plain[0]}; paged attention: "
+                  f"{PA.launches + PA8.launches}")
+            check(n == cfg.n_layers, f"{n} ssd_scan launches, not one per "
+                  f"layer ({cfg.n_layers})")
+            check(plain[0] == 0, "a plain scan ran on the card's path")
+            launches += n
+            runs.append(out)
+        (streams, logits, t_pre, t_dec), (streams2, _, t_pre2, t_dec2) = runs
+        check(tuple(streams.shape) == (MAMBA_BATCH, MAMBA_NEW)
+              and int(streams.min()) >= 0
+              and int(streams.max()) < cfg.vocab_size,
+              "stream shape / token range")
+        check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+        check(torch.equal(streams, streams2),
+              "greedy determinism: two runs gave different tokens")
+        m = {"prompt_tokens": s, "batch": MAMBA_BATCH,
+             "prefill_wall_s": [t_pre, t_pre2],
+             "per_token_decode_s": [t_dec, t_dec2],
+             "tokens_per_s": [MAMBA_BATCH * MAMBA_NEW
+                              / (tp + (MAMBA_NEW - 1) * td)
+                              for tp, td in ((t_pre, t_dec),
+                                             (t_pre2, t_dec2))],
+             "distinct_tokens": len(set(streams.flatten().tolist()))}
+        print(f"mamba2 generation [{card}]: " + json.dumps(m))
+    print("mamba2: greedy streams identical across two runs per batch")
+
+    # f32: the kernel's prefill against the plain chunked form, and forward
+    # at t against prefill(:t) plus one decode step
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = {k: {kk: vv.float() for kk, vv in v.items()}
+           for k, v in params.items()}
+    for s, toks in batches.items():
+        SSD.launches = 0
+        kl, kc, _ = api.prefill(cfg32, p32, {"tokens": toks})
+        for chunk, tol in MAMBA_PREFILL_TOL.items():
+            with scan_through_plain_form():
+                pl, pc, _ = api.prefill(
+                    dataclasses.replace(cfg32, ssm_chunk=chunk), p32,
+                    {"tokens": toks})
+            torch.cuda.synchronize()
+            err = float((kl - pl).abs().max())
+            err_state = float((kc["ssm"] - pc["ssm"]).abs().max())
+            print(f"[mamba2 {s}] f32 prefill, kernel vs plain chunked form "
+                  f"at chunk {chunk}: logits max_abs_err {err:.3e} (limit "
+                  f"{tol:g}, |logits| <= {float(pl.abs().max()):.3f}); "
+                  f"ssm state {err_state:.3e} (|state| <= "
+                  f"{float(pc['ssm'].abs().max()):.2f})")
+            check(math.isfinite(err) and err <= tol,
+                  "kernel prefill differs from the plain chunked form")
+        check(SSD.launches == cfg.n_layers, "f32 prefill launch count")
+        t = s - 1
+        full = api.forward(cfg32, p32, toks)[:, t]
+        for conv_dtype, tol in MAMBA_SPLIT_TOL.items():
+            ssm.CONV_STATE_DTYPE = conv_dtype
+            try:
+                _, cache, pos = api.prefill(cfg32, p32,
+                                            {"tokens": toks[:, :t]})
+                dl, _ = api.decode_step(cfg32, p32, toks[:, t], cache, pos,
+                                        seq_len=s)
+            finally:
+                ssm.CONV_STATE_DTYPE = torch.bfloat16
+            err = float((dl - full).abs().max())
+            print(f"[mamba2 {s}] f32 forward at t={t} vs prefill(:{t}) + "
+                  f"one decode step, conv state {conv_dtype}: max_abs_err "
+                  f"{err:.3e} (limit {tol:g}, |logits| <= "
+                  f"{float(full.abs().max()):.3f})")
+            check(math.isfinite(err) and err <= tol,
+                  "prefill + decode step differs from forward")
+    del p32
+
+    phase("mamba2 profile")
+    toks = batches[MAMBA_PROMPTS[0]]
+    _, cache, pos = api.prefill(cfg, params, {"tokens": toks})
+    tok = toks[:, -1]
+    mamba2_profile(card, f"prefill ({MAMBA_BATCH} x {MAMBA_PROMPTS[0]})",
+                   lambda: api.prefill(cfg, params, {"tokens": toks}), 3)
+    mamba2_profile(card, f"decode step (batch {MAMBA_BATCH})",
+                   lambda: api.decode_step(cfg, params, tok, cache, pos,
+                                           seq_len=pos + 1), 10)
+    return launches
+
+
+def build_all():
+    """The three kernel libraries from source, one nvcc process per source,
+    all started together."""
+    t0 = time.perf_counter()
+    mods = (PA, PA8, SSD)
     with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
         libs = list(pool.map(lambda m: m.build(), mods))   # re-raises
     for m, lib in zip(mods, libs):
@@ -621,8 +969,12 @@ def main() -> int:
     entries = [kernel_phase()]
     phase("kernel (int8)")
     entries.append(kernel_int8_phase())
+    phase("kernel (ssd_scan)")
+    entries.append(ssd_scan_phase())
 
     launches = serving_phases(card)
+    phase("mamba2 generation")
+    launches["ssd_scan"] = mamba2_phase(card)
     for e in entries:
         e["launches"] = launches[e["name"]]
 

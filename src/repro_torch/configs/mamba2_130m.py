@@ -1,0 +1,11 @@
+"""Mamba2-130M — attention-free SSM with SSD (state-space duality). [arXiv:2405.21060]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mamba2-130m", arch_type="ssm",
+    n_layers=24, d_model=768, n_heads=0, n_kv_heads=0,
+    d_ff=0, vocab_size=50_280,
+    ssm_state=128, ssm_head_dim=64, ssm_expand=2, ssm_conv=4, ssm_chunk=256,
+    tie_embeddings=True,
+    source="arXiv:2405.21060",
+)

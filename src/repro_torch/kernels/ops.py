@@ -8,6 +8,7 @@ import torch
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import paged_attention_int8 as _pa8
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, lengths, starts=None):
@@ -38,3 +39,17 @@ def paged_attention_int8(q, k_pages, k_scales, v_pages, v_scales,
                                             starts)
     return _pa8.paged_attention_int8(q, k_pages, k_scales, v_pages, v_scales,
                                      block_tables, lengths, starts)
+
+
+def ssd_scan(xdt, a, B, C, chunk: int = 64, h0=None):
+    """Mamba-2 SSD chunked scan: xdt (b, s, h, p), a (b, s, h) log decays,
+    B, C (b, s, n), optional h0 (b, h, p, n); ``s`` must be a multiple of
+    ``chunk``. Returns (y (b, s, h, p) f32, h_final (b, h, p, n) f32). See
+    ``kernels/ssd_scan.py``."""
+    assert xdt.ndim == 4 and a.ndim == 3 and B.ndim == 3 and C.ndim == 3
+    if chunk <= 0 or xdt.shape[1] % chunk:
+        raise ValueError(f"seq {xdt.shape[1]} is not a multiple of chunk "
+                         f"{chunk}")
+    if xdt.device.type == "cpu":
+        return ref.ssd_scan_ref(xdt, a, B, C, h0)
+    return _ssd.ssd_scan(xdt, a, B, C, chunk=chunk, h0=h0)

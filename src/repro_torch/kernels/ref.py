@@ -56,3 +56,29 @@ def paged_attention_int8_ref(q, k_pages, k_scales, v_pages, v_scales,
     v = dequantize_pages(v_pages, v_scales)
     return paged_attention_ref(q.float(), k, v, block_tables, lengths,
                                starts).to(q.dtype)
+
+
+def ssd_scan_ref(xdt, a, B, C, h0=None):
+    """Mamba-2 SSD scan as the plain sequential recurrence, one position at
+    a time (independent of the chunked form), in f32:
+
+      state_t = state_{t-1} * exp(a_t) + x_t B_t^T,   y_t = state_t C_t
+
+    xdt: (b, s, h, p) inputs pre-multiplied by dt; a: (b, s, h) log decays;
+    B, C: (b, s, n); h0: optional (b, h, p, n) initial state (None = 0).
+    Returns (y (b, s, h, p) f32, h_final (b, h, p, n) f32).
+    """
+    b, s, h, p = xdt.shape
+    n = B.shape[-1]
+    state = torch.zeros((b, h, p, n), dtype=torch.float32,
+                        device=xdt.device) if h0 is None else h0.float()
+    ys = []
+    for t in range(s):
+        xt = xdt[:, t].float()                              # (b,h,p)
+        at = torch.exp(a[:, t].float())                     # (b,h)
+        Bt = B[:, t].float()                                # (b,n)
+        Ct = C[:, t].float()
+        state = state * at[..., None, None] + \
+            xt[..., None] * Bt[:, None, None, :]
+        ys.append(torch.einsum("bhpn,bn->bhp", state, Ct))
+    return torch.stack(ys, dim=1), state

@@ -39,6 +39,19 @@ def dense_init(generator, shape, scale: Optional[float] = None,
     return (x * scale).to(dtype)
 
 
+def init_embed(generator, cfg, dtype=torch.bfloat16, device="cpu"):
+    """Token embedding (N(0, 0.02^2)), final norm (ones) and, unless tied,
+    the unembedding (1/sqrt(d_model)) — the reference's scales."""
+    d = cfg.d_model
+    emb = {"tok": dense_init(generator, (cfg.vocab_size, d), 0.02, dtype,
+                             device),
+           "norm_f": torch.ones((d,), dtype=dtype, device=device)}
+    if not cfg.tie_embeddings:
+        emb["unembed"] = dense_init(generator, (d, cfg.vocab_size),
+                                    dtype=dtype, device=device)
+    return emb
+
+
 def kv_cache_dtype(cfg) -> torch.dtype:
     """Unquantized KV-cache carrier dtype: cfg.kv_dtype, except int8
     configs keep bf16 payloads on paths that carry no quantization scales."""

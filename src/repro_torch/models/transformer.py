@@ -48,12 +48,7 @@ def init_params(cfg, generator: torch.Generator, device="cuda", dtype=None):
         "norm_attn": torch.ones((n, d), dtype=dtype, device=device),
         "norm_mlp": torch.ones((n, d), dtype=dtype, device=device),
     }
-    emb = {"tok": L.dense_init(generator, (cfg.vocab_size, d), 0.02, dtype,
-                               device),
-           "norm_f": torch.ones((d,), dtype=dtype, device=device)}
-    if not cfg.tie_embeddings:
-        emb["unembed"] = L.dense_init(generator, (d, cfg.vocab_size),
-                                      dtype=dtype, device=device)
+    emb = L.init_embed(generator, cfg, dtype, device)
     return {"embed": emb, "layers": layers}
 
 

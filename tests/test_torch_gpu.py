@@ -16,9 +16,11 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
 from repro_torch.kernels import paged_attention_int8 as PA8  # noqa: E402
+from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.kernels.ref import (paged_attention_int8_ref,  # noqa: E402
-                                     paged_attention_ref)
+                                     paged_attention_ref, ssd_scan_ref)
 from repro_torch.models import paged_decode as PD  # noqa: E402
+from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
@@ -182,3 +184,67 @@ def test_int8_decode_step_runs_through_kernel(card):
     assert ((deq(kg.cpu(), ksg.cpu()) - deq(kp, ks)).abs()
             <= step + 1e-6).all()
     assert (kg.cpu() != kp).any(dim=(1, 4)).sum() <= cfg.n_layers * 4
+
+
+def _ssd_case(b, s, h, p, n, bc_dtype, seed=0):
+    """The reference sweep's input scales; B and C are strided slices of one
+    (b, s, 2n + 5) tensor, as the model's are slices of the conv output."""
+    rng = np.random.default_rng(seed)
+    f = lambda scale, *shape: torch.from_numpy(  # noqa: E731
+        (rng.standard_normal(shape) * scale).astype(np.float32)).cuda()
+    xdt = f(0.5, b, s, h, p)
+    a = -f(0.3, b, s, h).abs()
+    bc = f(0.3, b, s, 2 * n + 5).to(bc_dtype)
+    h0 = f(1.0, b, h, p, n)
+    return xdt, a, bc[..., :n], bc[..., n:2 * n], h0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (2, 96, 16, 32, 32, 32),     # reduced mamba2-130m heads, 3 chunks
+    (2, 512, 24, 64, 128, 256),  # full-width mamba2-130m heads, 2 chunks
+    (2, 200, 24, 64, 128, 200),  # ragged: chunk = s = 200 (6 x 32 + 8)
+])
+def test_ssd_scan_kernel_matches_plain(card, shape, bc_dtype, with_h0):
+    """The kernel against the sequential recurrence on the same inputs (the
+    bf16 B and C widen exactly to f32 in both), within the reference's own
+    kernel-vs-oracle tolerance."""
+    b, s, h, p, n, chunk = shape
+    xdt, a, B, C, h0 = _ssd_case(b, s, h, p, n, bc_dtype)
+    h0 = h0 if with_h0 else None
+    before = SSD.launches
+    y, hf = SSD.ssd_scan(xdt, a, B, C, chunk=chunk, h0=h0)
+    torch.cuda.synchronize()
+    assert SSD.launches == before + 1
+    ry, rh = ssd_scan_ref(xdt, a, B, C, h0)
+    assert y.shape == (b, s, h, p) and hf.shape == (b, h, p, n)
+    torch.testing.assert_close(y, ry, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(hf, rh, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+def test_ssm_prefill_runs_through_kernel(card):
+    """A reduced float32 Mamba-2 prefill on the card launches the scan
+    kernel once per layer (40 tokens: padded to 64 at chunk 32) and matches
+    the same prefill on the CPU (the plain chunked form)."""
+    cfg = dataclasses.replace(get_config("mamba2-130m").reduced(),
+                              dtype="float32")
+    params = ssm.init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+
+    def to_card(tree):
+        return {k: to_card(v) if isinstance(v, dict) else v.to(card)
+                for k, v in tree.items()}
+
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        2, cfg.vocab_size, (2, 40)).astype(np.int32))
+    cpu = ssm.prefill(cfg, params, toks)
+    before = SSD.launches
+    gpu = ssm.prefill(cfg, to_card(params), toks.to(card))
+    torch.cuda.synchronize()
+    assert SSD.launches == before + cfg.n_layers
+    torch.testing.assert_close(gpu[0].cpu(), cpu[0], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(gpu[1]["ssm"].cpu(), cpu[1]["ssm"],
+                               rtol=1e-4, atol=1e-4)

@@ -14,11 +14,18 @@ Phases (each raises, and the script exits non-zero, if its check fails):
   3. kernel   — holds the bf16 paged-attention kernel against its plain
                 PyTorch version at the serving shape (B=8, H=32, K=8, D=128,
                 page 16, 16 pages, bf16, ragged lengths, with and without
-                window starts, fully masked pages), in f32, and at the
-                reduced test shape (page 8, D 64); times kernel and plain
-                version with CUDA events.
+                window starts, fully masked pages), in f32, at the reduced
+                test shape (page 8, D 64) and at the long shape (256 pages,
+                lengths up to 4096); at lengths 1 and around split
+                boundaries with starts that mask whole splits; checks batch
+                invariance (one sequence alone, in a batch of 8, in another
+                slot over other pages: equal bits; two calls equal); times
+                kernel and plain version at the serving and the long shape
+                in a CUDA graph (device time, bound, share of the bound),
+                and, for information only, scaled_dot_product_attention
+                over K/V already gathered into contiguous tensors.
   4. kernel (int8) — the same for the int8 kernel over quantized pages
-                (q in bf16 and f32, both shapes, one all-zero row with
+                (q in bf16 and f32, all shapes, one all-zero row with
                 scale 1), and quantize_pages on the card against the CPU,
                 bit for bit.
   5. kernel (ssd_scan) — the SSD scan kernel against its plain sequential
@@ -53,7 +60,8 @@ Phases (each raises, and the script exits non-zero, if its check fails):
 
 Each path's kernel launch counts are set to 0 just before the path and read
 just after; launches made to compare a kernel with its plain version are
-not counted.
+not counted. An attention call counts each CUDA kernel it launches: its
+split pass and, over a table wide enough for two splits, its merge pass.
 """
 from __future__ import annotations
 
@@ -92,6 +100,9 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,         # dense tensor-core bf16
               torch.float32: 67e12}           # f32 outside the tensor cores
 TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-5}
 LAYERS_PER_STEP = 32                          # one launch per layer per step
+SERVE_SHAPE = (8, 32, 8, 128, 16, 16, 257)    # B, H, K, D, page, pps, P
+LONG_SHAPE = (8, 32, 8, 128, 16, 256, 2049)   # every length 4096 when timed
+REDUCED_SHAPE = (4, 4, 2, 64, 8, 32, 129)
 SERVE_PROMPT_LENS = [16, 48, 96, 150, 200]
 SSD_SERVE = (8, 512, 24, 64, 128, 256)        # b, s, h, p, n, chunk
 SSD_REDUCED = (2, 96, 16, 32, 32, 32)
@@ -239,39 +250,185 @@ def graph_ms(fn, inputs, reps=25):
     return statistics.median(times)
 
 
+def split_edge_lengths(page, width):
+    """Length 1, and lengths just below, at and just above split boundaries
+    of a table ``width`` pages wide: 2- and 4-page edges (runs of 2 pages
+    while few pages are live), 16 and 32 pages (where the runs grow with
+    the live page count), half the table."""
+    edges = [e * page for e in (2, 4, 16, 32) if e < width] + \
+        [width * page // 2]
+    return [1] + [e + d for e in edges for d in (-1, 0, 1)]
+
+
+def edge_case(shape, dtype, seed):
+    """``kernel_case`` with the lengths of ``split_edge_lengths`` and window
+    starts that mask whole splits: 4 pages + 1 where the length allows (the
+    first two 2-page runs of a start-0 layout fully masked), else 0."""
+    _, h, kheads, d, page, pps, _ = shape
+    lengths = split_edge_lengths(page, pps)
+    b = len(lengths)
+    q, kp, vp, bt, _, _ = kernel_case(b, h, kheads, d, page, pps,
+                                      b * pps + 1, dtype, seed)
+    ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    st = torch.where(ln > 4 * page + 1, 4 * page + 1, 0).to(torch.int32)
+    return q, kp, vp, bt, ln, st
+
+
+def seq_errors(got, want, dtype):
+    """max |got - want| of each sequence (dim 0), and each sequence's limit:
+    TOL[dtype], and for bf16 also TOL[bf16] x that sequence's max |want|.
+    bf16 rounds relative to a value's size, and a long sequence's attention
+    outputs are far below 1 (about sqrt(e / length) for unit-normal
+    inputs), where a fixed 3e-2 would pass a kernel that dropped pages."""
+    err = (got.float() - want.float()).abs().flatten(1).amax(1)
+    tol = torch.full_like(err, TOL[dtype])
+    if dtype == torch.bfloat16:
+        tol = torch.minimum(
+            tol, TOL[dtype] * want.float().abs().flatten(1).amax(1))
+    return err, tol
+
+
+def launches_per_call(width) -> int:
+    """CUDA kernels one attention call launches over a block table ``width``
+    pages wide: the split pass, and the merge pass when a sequence can have
+    two splits (more than kMinPagesPerSplit = 2 live pages)."""
+    return 1 if width <= 2 else 2
+
+
+def check_against_plain(label, kernel, plain, args, starts, dtype):
+    got = kernel(*args, starts)
+    torch.cuda.synchronize()
+    want = plain(*args, starts)
+    errs, tols = seq_errors(got, want, dtype)
+    err = float(errs.max())
+    worst = float((errs / tols).max())
+    print(f"{label} starts={starts is not None}: max_abs_err {err:.3e} "
+          f"(limit {TOL[dtype]:.0e}; the tightest sequence's limit "
+          f"{float(tols.min()):.2e}; worst sequence at {worst:.3f} of its "
+          f"limit)")
+    check(math.isfinite(err) and bool((errs <= tols).all()),
+          f"{label}: kernel disagrees with plain version: {err}")
+    return err
+
+
+def batch_invariance(label, kernel, pools, dtype):
+    """One sequence's output alone (B = 1), inside a batch of 8 and in
+    another slot over other physical pages holding the same bytes must be
+    the same bits; two calls on the same inputs too. ``pools(kp, vp)``
+    gives the pool arguments that follow q."""
+    page, width = 16, 64
+    q, kp, vp, bt, ln, st = kernel_case(8, 32, 8, 128, page, width,
+                                        8 * width + 1, torch.float32, seed=7)
+    ln[5], st[5] = 700, 37                   # 42 live pages: several splits
+    n_phys = kp.shape[1]
+    # the same bytes again on pages no table uses
+    pool = pools(torch.cat([kp, kp], 1), torch.cat([vp, vp], 1))
+    q = q.to(dtype)
+    batch = kernel(q, *pool, bt, ln, st)
+    again = kernel(q, *pool, bt, ln, st)
+    alone = kernel(q[5:6].contiguous(), *pool, bt[5:6].contiguous(),
+                   ln[5:6], st[5:6])
+    idx = torch.tensor([0, 1, 5], device="cuda")
+    moved_bt = torch.stack([bt[0], bt[1], bt[5] + n_phys])
+    moved = kernel(q[idx].contiguous(), *pool, moved_bt.contiguous(),
+                   ln[idx].contiguous(), st[idx].contiguous())
+    torch.cuda.synchronize()
+    same = [torch.equal(batch, again), torch.equal(alone[0], batch[5]),
+            torch.equal(moved[2], batch[5])]
+    print(f"{label} batch invariance, q {dtype}: two calls equal "
+          f"{same[0]}; alone (B=1) == in batch of 8 {same[1]}; in slot 2 "
+          f"over other pages == in batch {same[2]}")
+    check(all(same), f"{label}: output depends on more than its own row")
+
+
+def sdpa_ms(gathered):
+    """Device time of scaled_dot_product_attention(..., enable_gqa=True)
+    over (q (B, H, 1, D), k, v (B, K, S, D)) already contiguous: a yardstick
+    only — not the same function (no page gather) and never called by the
+    port."""
+    import torch.nn.functional as F
+
+    def fn(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, enable_gqa=True)
+    try:
+        return graph_ms(fn, gathered)
+    except (RuntimeError, TypeError) as e:
+        print(f"sdpa on gathered K/V: not measured ({e})")
+        return None
+
+
+def gather(q, k, v, bt):
+    """q (B, H, D), pools (K, P, page, D), tables -> SDPA's layout."""
+    b = q.shape[0]
+    kheads, _, page, d = k.shape
+
+    def seq(x):
+        x = x[:, bt.long()]                        # (K, B, pps, page, D)
+        return x.permute(1, 0, 2, 3, 4).reshape(b, kheads, -1, d) \
+            .contiguous()
+    return q[:, :, None].contiguous(), seq(k), seq(v)
+
+
+def time_shapes(label, kernel, plain, sets_by_shape, bound_fn, gathered_fn):
+    """Device time of the kernel and its plain version at the serving and
+    the long shape, the bound and the share of the bound, and SDPA's time
+    over the same K/V gathered. Returns the serving shape's numbers."""
+    out = {}
+    for shape_name, sets in sets_by_shape.items():
+        ms = graph_ms(kernel, sets)
+        plain_ms = graph_ms(plain, sets, reps=20 if len(sets) > 1 else 5)
+        bms, by = bound_fn(sets[0])
+        lib = sdpa_ms([gathered_fn(s) for s in sets])
+        lib_txt = "not measured" if lib is None else f"{lib * 1e3:.2f} us"
+        print(f"{label} at {shape_name} shape, device time (CUDA graph): "
+              f"{ms * 1e3:.2f} us; plain {plain_ms * 1e3:.2f} us; bound "
+              f"{bms * 1e3:.2f} us ({by}); share of the bound "
+              f"{bms / ms:.3f}")
+        print(f"{label} at {shape_name} shape, for information: "
+              f"scaled_dot_product_attention(enable_gqa=True) over K/V "
+              f"already gathered into contiguous tensors {lib_txt} (not "
+              f"the same function: no page gather; the port never calls it)")
+        out[shape_name] = (ms, plain_ms, bms, by)
+    eager_ms = time_ms(kernel, sets_by_shape["serving"])
+    print(f"{label} at serving shape, eager call incl. host dispatch: "
+          f"{eager_ms * 1e3:.2f} us")
+    return out["serving"]
+
+
 def kernel_phase() -> dict:
-    serve_shape = (8, 32, 8, 128, 16, 16, 257)    # B,H,K,D,page,pps,P
-    cases = [(serve_shape, torch.bfloat16), (serve_shape, torch.float32),
-             ((4, 4, 2, 64, 8, 32, 129), torch.float32),
-             ((4, 4, 2, 64, 8, 32, 129), torch.bfloat16)]
+    cases = [(SERVE_SHAPE, torch.bfloat16), (SERVE_SHAPE, torch.float32),
+             (REDUCED_SHAPE, torch.float32), (REDUCED_SHAPE, torch.bfloat16),
+             (LONG_SHAPE, torch.bfloat16), (LONG_SHAPE, torch.float32)]
     max_err = 0.0
     for i, (shape, dtype) in enumerate(cases):
         q, kp, vp, bt, ln, st = kernel_case(*shape, dtype=dtype, seed=i)
         for starts in (None, st):
-            got = PA.paged_attention(q, kp, vp, bt, ln, starts)
-            torch.cuda.synchronize()
-            want = paged_attention_ref(q, kp, vp, bt, ln, starts)
-            err = float((got.float() - want.float()).abs().max())
-            print(f"kernel check {shape} {dtype} starts={starts is not None}"
-                  f": max_abs_err {err:.3e} (limit {TOL[dtype]:.0e})")
-            check(math.isfinite(err) and err <= TOL[dtype],
-                  f"kernel disagrees with plain version: {err}")
-            max_err = max(max_err, err)
-    # timing at the serving shape, every sequence at full length (256)
-    n_sets = 5                                      # 5 x 16.8 MB > L2
-    sets = [kernel_case(*serve_shape, dtype=torch.bfloat16, seed=100 + j,
-                        full=True)[:5] for j in range(n_sets)]
-    ms = graph_ms(PA.paged_attention, sets)
-    plain_ms = graph_ms(paged_attention_ref, sets, reps=20)
-    eager_ms = time_ms(PA.paged_attention, sets)
-    eager_plain_ms = time_ms(paged_attention_ref, sets, reps=20, warmup=1)
-    q, kp, _, _, ln = sets[0]
-    bms, by = bound_ms(q, kp, ln, None)
-    print(f"kernel at serving shape, device time (CUDA graph): "
-          f"{ms * 1e3:.2f} us; plain {plain_ms * 1e3:.2f} us; bound "
-          f"{bms * 1e3:.2f} us ({by})")
-    print(f"kernel at serving shape, eager call incl. host dispatch: "
-          f"{eager_ms * 1e3:.2f} us; plain {eager_plain_ms * 1e3:.2f} us")
+            max_err = max(max_err, check_against_plain(
+                f"kernel check {shape} {dtype}", PA.paged_attention,
+                paged_attention_ref, (q, kp, vp, bt, ln), starts, dtype))
+    for shape in (SERVE_SHAPE, LONG_SHAPE):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, kp, vp, bt, ln, st = edge_case(shape, dtype, seed=20)
+            for starts in (None, st):
+                max_err = max(max_err, check_against_plain(
+                    f"kernel check, lengths {ln.tolist()} (split edges, "
+                    f"length 1), {dtype}", PA.paged_attention,
+                    paged_attention_ref, (q, kp, vp, bt, ln), starts, dtype))
+    for dtype in (torch.bfloat16, torch.float32):
+        batch_invariance("kernel", PA.paged_attention,
+                         lambda k, v, dtype=dtype: (k.to(dtype), v.to(dtype)),
+                         dtype)
+    # timing, every sequence at full length: serving 5 sets x 16.8 MB of
+    # K/V > the 50 MB L2; long one set of 134 MB
+    sets = {"serving": [kernel_case(*SERVE_SHAPE, dtype=torch.bfloat16,
+                                    seed=100 + j, full=True)[:5]
+                        for j in range(5)],
+            "long": [kernel_case(*LONG_SHAPE, dtype=torch.bfloat16,
+                                 seed=200, full=True)[:5]]}
+    ms, plain_ms, bms, by = time_shapes(
+        "kernel", PA.paged_attention, paged_attention_ref, sets,
+        lambda s: bound_ms(s[0], s[1], s[4], None),
+        lambda s: gather(s[0], s[1], s[2], s[3]))
     return {"name": "paged_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention.py:31",
@@ -295,11 +452,15 @@ def int8_case(shape, dtype, seed, full=False):
     return (q.to(dtype), kq, ks, vq, vs, bt, ln, st), kp
 
 
+def quantized(k, v):
+    (kq, ks), (vq, vs) = PA8.quantize_pages(k), PA8.quantize_pages(v)
+    return kq, ks, vq, vs
+
+
 def kernel_int8_phase() -> dict:
-    serve_shape = (8, 32, 8, 128, 16, 16, 257)    # B,H,K,D,page,pps,P
-    reduced = (4, 4, 2, 64, 8, 32, 129)
-    cases = [(serve_shape, torch.bfloat16), (serve_shape, torch.float32),
-             (reduced, torch.float32), (reduced, torch.bfloat16)]
+    cases = [(SERVE_SHAPE, torch.bfloat16), (SERVE_SHAPE, torch.float32),
+             (REDUCED_SHAPE, torch.float32), (REDUCED_SHAPE, torch.bfloat16),
+             (LONG_SHAPE, torch.bfloat16), (LONG_SHAPE, torch.float32)]
     max_err = 0.0
     for i, (shape, dtype) in enumerate(cases):
         (q, kq, ks, vq, vs, bt, ln, st), kp = int8_case(shape, dtype, seed=i)
@@ -312,32 +473,36 @@ def kernel_int8_phase() -> dict:
             print("quantize_pages: card == CPU, bit for bit "
                   f"({kp.numel()} values)")
         for starts in (None, st):
-            got = PA8.paged_attention_int8(q, kq, ks, vq, vs, bt, ln, starts)
-            torch.cuda.synchronize()
-            want = paged_attention_int8_ref(q, kq, ks, vq, vs, bt, ln, starts)
-            err = float((got.float() - want.float()).abs().max())
-            print(f"int8 kernel check {shape} q {dtype} "
-                  f"starts={starts is not None}: max_abs_err {err:.3e} "
-                  f"(limit {TOL[dtype]:.0e})")
-            check(math.isfinite(err) and err <= TOL[dtype],
-                  f"int8 kernel disagrees with plain version: {err}")
-            max_err = max(max_err, err)
-    # timing at the serving shape, every sequence at full length (256);
-    # 12 x 4.4 MB of live K/V and scales > the 50 MB L2
-    sets = [int8_case(serve_shape, torch.bfloat16, seed=100 + j,
-                      full=True)[0][:7] for j in range(12)]
-    ms = graph_ms(PA8.paged_attention_int8, sets)
-    plain_ms = graph_ms(paged_attention_int8_ref, sets, reps=20)
-    eager_ms = time_ms(PA8.paged_attention_int8, sets)
-    eager_plain_ms = time_ms(paged_attention_int8_ref, sets, reps=20,
-                             warmup=1)
-    q, kq, ks, _, _, _, ln = sets[0]
-    bms, by = bound_ms(q, kq, ln, None, scales=ks)
-    print(f"int8 kernel at serving shape, device time (CUDA graph): "
-          f"{ms * 1e3:.2f} us; plain {plain_ms * 1e3:.2f} us; bound "
-          f"{bms * 1e3:.2f} us ({by})")
-    print(f"int8 kernel at serving shape, eager call incl. host dispatch: "
-          f"{eager_ms * 1e3:.2f} us; plain {eager_plain_ms * 1e3:.2f} us")
+            max_err = max(max_err, check_against_plain(
+                f"int8 kernel check {shape} q {dtype}",
+                PA8.paged_attention_int8, paged_attention_int8_ref,
+                (q, kq, ks, vq, vs, bt, ln), starts, dtype))
+    for shape in (SERVE_SHAPE, LONG_SHAPE):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, kp, vp, bt, ln, st = edge_case(shape, torch.float32, seed=21)
+            args = (q.to(dtype), *quantized(kp, vp), bt, ln)
+            for starts in (None, st):
+                max_err = max(max_err, check_against_plain(
+                    f"int8 kernel check, lengths {ln.tolist()} (split "
+                    f"edges, length 1), q {dtype}", PA8.paged_attention_int8,
+                    paged_attention_int8_ref, args, starts, dtype))
+    for dtype in (torch.bfloat16, torch.float32):
+        batch_invariance("int8 kernel", PA8.paged_attention_int8, quantized,
+                         dtype)
+    # timing, every sequence at full length: serving 12 x 4.4 MB of live
+    # K/V and scales > the 50 MB L2; long one set of 68 MB
+
+    def deq(s):
+        q, kq, ks, vq, vs, bt, _ = s
+        return gather(q, PA8.dequantize_pages(kq, ks).to(q.dtype),
+                      PA8.dequantize_pages(vq, vs).to(q.dtype), bt)
+    sets = {"serving": [int8_case(SERVE_SHAPE, torch.bfloat16, seed=100 + j,
+                                  full=True)[0][:7] for j in range(12)],
+            "long": [int8_case(LONG_SHAPE, torch.bfloat16, seed=200,
+                               full=True)[0][:7]]}
+    ms, plain_ms, bms, by = time_shapes(
+        "int8 kernel", PA8.paged_attention_int8, paged_attention_int8_ref,
+        sets, lambda s: bound_ms(s[0], s[1], s[6], None, scales=s[2]), deq)
     return {"name": "paged_attention_int8", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attention_int8.cu",
             "replaces": "src/repro/kernels/paged_attention_int8.py:30",
@@ -534,7 +699,7 @@ def decode_profile(engine, card: str, kernel):
         step()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / n
-    check(kernel.launches == n * LAYERS_PER_STEP,
+    check(kernel.launches == n * LAYERS_PER_STEP * launches_per_call(width),
           f"decode profile: {kernel.launches} {kname(kernel)} launches")
     per_step = kernel.launches / n
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -550,8 +715,9 @@ def decode_profile(engine, card: str, kernel):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / n / 1e3
     name = kname(kernel) + "_kernel"
+    # the split pass and its merge pass (only one pool's kernels run here)
     attn = sum(e.self_device_time_total for e in kernels
-               if name in e.key) / n / 1e3
+               if name in e.key or "merge_splits_kernel" in e.key) / n / 1e3
     ops = sum(e.count for e in events if e.key.startswith("aten::")) / n
     m = {"pool": str(pool.k.dtype).replace("torch.", ""),
          "decode_step_wall_ms": wall * 1e3, "device_busy_ms": busy,

@@ -4,8 +4,9 @@ Each kernel's CUDA source under ``csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into its own shared library with a plain C interface, at first
 use, into ``build/kernels`` at the repository root (a directory git
 ignores), and loaded with ctypes. A library's file name carries a hash of
-its source, so an edited source is rebuilt and a stale library is never
-loaded; the output is written under a temporary name and renamed into
+its source and of every header it includes from ``csrc/`` (``#include
+"name.cuh"``), so an edited source or header is rebuilt and a stale library
+is never loaded; the output is written under a temporary name and renamed into
 place, so a concurrent or interrupted build never leaves a partial library.
 """
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -20,6 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -47,9 +50,24 @@ class KernelLibrary:
         self.build_seconds = None
         self._lib = None
 
+    def sources(self) -> list[Path]:
+        """The ``.cu`` source and the local headers it includes, directly or
+        through another header, in the order first included."""
+        found, todo = [], [self.source]
+        while todo:
+            path = todo.pop(0)
+            if path in found:
+                continue
+            found.append(path)
+            todo += [path.parent / name for name in _INCLUDE.findall(
+                path.read_text()) if (path.parent / name).exists()]
+        return found
+
     def library_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:12]
-        return BUILD_DIR / f"lib{self.name}-{digest}.so"
+        digest = hashlib.sha256()
+        for path in self.sources():
+            digest.update(path.read_bytes())
+        return BUILD_DIR / f"lib{self.name}-{digest.hexdigest()[:12]}.so"
 
     def build(self) -> Path:
         """Compile the library if this source has not been built yet."""

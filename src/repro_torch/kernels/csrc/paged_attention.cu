@@ -1,4 +1,5 @@
-// Flash-decode attention over a block-paged KV pool, for Hopper (sm_90a).
+// Split-K flash-decode attention over a block-paged KV pool, for Hopper
+// (sm_90a).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/paged_attention.py
 // (`_kernel`, wrapper `paged_attention`): one query token per sequence,
@@ -6,241 +7,225 @@
 // in f32, scale 1/sqrt(D), positions outside [starts[b], lengths[b]) masked,
 // output acc / max(l, 1e-30) in q's dtype.
 //
-// Design. One thread block per (kv_head, sequence). The block reads its own
-// block-table row, length and start, then walks the sequence's live pages in
-// order inside the block (the TPU kernel's sequential grid axis becomes this
-// loop). Per page it
-//   1. copies the (page, D) K and V tiles into shared memory with 16-byte
-//      coalesced loads (one tile of one KV head is contiguous in the pool);
-//   2. computes the rep x page scores, one warp per score, lanes split D;
-//   3. updates m and l per query head (one warp per head, lanes over page)
-//      and keeps p in shared memory;
-//   4. rescales and accumulates acc = acc * alpha + p V in registers, each
-//      thread owning fixed (head, d) outputs.
-// The loop covers only pages that hold a valid position: fully masked pages
-// leave m, l and acc unchanged in the TPU kernel too (alpha = 1, p = 0), so
-// skipping them gives the same result.
+// Bound. The kernel must read the live K/V rows once. At the serving shape
+// (B=8, H=32, K=8, D=128, page 16, length 256, bf16) that is 8.4 MB, about
+// 2.5 us at 3.35 TB/s; at length 4096 it is 134 MB, about 40 us. Its
+// 4 * tokens * H * D FLOPs sit far below the compute roof, so it is bound by
+// bytes: the design's job is to keep enough loads in flight on every SM.
 //
-// Bound. The kernel must read the live K/V pages once. At the main serving
-// shape (B=8, H=32, K=8, D=128, page=16, length 256, bf16) that is
-// 8 seq x 16 pages x 8 heads x 16 x 128 x 2 (k, v) x 2 B = 8.4 MB, about
-// 2.5 us at 3.35 TB/s; its 34 MFLOP are far below the compute roof, so it is
-// bound by bytes. What this simple design leaves for later: splitting a long
-// sequence's pages across blocks (split-K) so that B*K = 64 blocks fill more
-// than half of the 132 SMs, overlapping the next page's loads with this
-// page's math (cp.async or TMA with an mbarrier ring), and wgmma for the
-// score and PV products once rep >= 16.
+// Design (the split layout, the page ring, the per-page math and the merge
+// are in paged_attention_common.cuh, shared with the int8 kernel).
+//   * Grid (K x head tiles, B, splits): a block runs one split — a
+//     contiguous run of a sequence's live pages: 2 pages at the serving
+//     shape (8 splits, 512 blocks, about 4 per SM), 32 at length 4096
+//     (8 splits: 512 blocks, one wave; the f32 partials' write and read
+//     are 1.6% of the K/V bytes there) — and a second launch merges the
+//     splits in order. Both launches come from one C call; the wrapper
+//     hands in the partials' scratch, the kernel allocates nothing.
+//   * The block reads its slice of the block table once into shared
+//     memory; then one thread streams the pages with TMA bulk copies
+//     (cp.async.bulk, one 4 KB copy per K or V tile, completion on an
+//     mbarrier per stage) into a double buffer: page i + 1 is in flight
+//     while page i is computed, and one barrier per page frees a stage.
+//   * A thread owns E = 8 values of D (16 bytes of a bf16 row) for every
+//     query head of its tile; a group of G = D / 8 lanes covers one K/V
+//     row, and the block's 128 / G row groups take the page's rows two at
+//     a time. Each K element is read once from shared memory and serves
+//     all heads of the tile, whose q lives in registers; the 2 x rep scores
+//     are reduced together by a log2(G)-step xor shuffle (4 steps at
+//     D = 128).
+//   * Each row group keeps its own online softmax (m, l, acc in registers);
+//     acc is rescaled only when m grows. After its last page the block
+//     combines its row groups in group order (finish_split).
+//   * Fully masked pages are never loaded (the split covers live pages
+//     only); a masked row inside a live page is skipped, so stale bytes
+//     there never reach the sums.
+//   * f32 q/K/V (the tests' type) runs the same code in full f32, two
+//     16-byte vectors per thread row. D is 64, 128 or 256.
+//
+// Measured (PERF.md): at the serving shape the two launches and one chain
+// of dependent loads (lengths -> table -> page) set the time; at length
+// 4096 the card streams the pages at about the rate of a plain contiguous
+// read of the same bytes.
 //
 // Interface: plain C, loaded with ctypes. Pointers are device pointers; the
-// launch goes on `stream`; the return value is cudaGetLastError().
+// launches go on `stream`; nothing is allocated, nothing synchronises. A
+// launch returns the number of kernels it launched (1, or 2 with the merge
+// pass) or a negative CUDA error code.
 
-#include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <cmath>
 
+#include "paged_attention_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxAcc = 16;          // rep * D <= kMaxAcc * kThreads
-constexpr float kNegInf = -1e30f;
+using namespace pa;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+constexpr int E = 8;                   // values of D per thread
 
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int REP, int G>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                        const T* __restrict__ v_pages,
                        const int* __restrict__ block_tables,
                        const int* __restrict__ lengths,
                        const int* __restrict__ starts, T* __restrict__ out,
-                       int H, int K, int P, int page, int D,
-                       int pages_per_seq, float scale) {
-  const int kh = blockIdx.x;
+                       float* __restrict__ part, int B, int H, int K, int P,
+                       int page, int pages_per_seq, int head_tiles, int Z,
+                       float qk_scale) {
+  constexpr int D = G * E;
+  constexpr int groups = kThreads / G;
+  const int kh = blockIdx.x / head_tiles;
+  const int h0 = kh * (H / K) + (blockIdx.x % head_tiles) * REP;
+  const int nh = min(REP, (kh + 1) * (H / K) - h0);
   const int b = blockIdx.y;
-  const int rep = H / K;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-
-  // shared memory: K tile | V tile | q (f32) | p (f32) | m | l | alpha
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem);
-  T* vs = ks + page * D;
-  float* qs = reinterpret_cast<float*>(vs + page * D);
-  float* ps = qs + rep * D;
-  float* ms = ps + rep * page;
-  float* ls = ms + rep;
-  float* as = ls + rep;
-
+  const int split = blockIdx.z;
   const int len = lengths[b];
   const int start = starts ? starts[b] : 0;
-  const int* table = block_tables + (size_t)b * pages_per_seq;
-  const T* qb = q + ((size_t)b * H + (size_t)kh * rep) * D;
+  const Split sp = split_plan(start, len, page, pages_per_seq);
+  if (split >= sp.n_splits) return;
+  const int p_begin = sp.first + split * sp.pages_per_split;
+  const int n_pages = max(min(sp.pages_per_split, sp.last - p_begin), 0);
 
-  for (int i = tid; i < rep * D; i += kThreads) qs[i] = to_float(qb[i]);
-  for (int r = tid; r < rep; r += kThreads) {
-    ms[r] = kNegInf;
-    ls[r] = 0.f;
-  }
-  float acc[kMaxAcc];
+  const int tid = threadIdx.x;
+  const int group = tid / G;
+  const int lane = tid % G;
+
+  // stage: K tile | V tile, (page, D) each
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tile_elems = page * D;
+  const size_t stage_bytes = 2 * (size_t)tile_elems * sizeof(T);
+  const SmemLayout lay = smem_layout(stage_bytes, groups, REP, D,
+                                     pages_per_seq);
+  int* tbl = reinterpret_cast<int*>(smem + lay.table);
+
+  // q of the tile's heads in registers (heads past nh stay 0)
+  float qr[REP][E];
 #pragma unroll
-  for (int a = 0; a < kMaxAcc; ++a) acc[a] = 0.f;
-
-  const int first = max(start, 0) / page;
-  const int last = min((len + page - 1) / page, pages_per_seq);
-  const int tile_vecs = page * D * (int)sizeof(T) / 16;
-
-  for (int i = first; i < last; ++i) {
-    __syncthreads();  // previous page's tiles and p are no longer read
-    const size_t tile = ((size_t)kh * P + (size_t)table[i]) * page * D;
-    const uint4* ksrc = reinterpret_cast<const uint4*>(k_pages + tile);
-    const uint4* vsrc = reinterpret_cast<const uint4*>(v_pages + tile);
-    uint4* kdst = reinterpret_cast<uint4*>(ks);
-    uint4* vdst = reinterpret_cast<uint4*>(vs);
-    for (int v = tid; v < tile_vecs; v += kThreads) {
-      kdst[v] = __ldg(ksrc + v);
-      vdst[v] = __ldg(vsrc + v);
-    }
-    __syncthreads();
-
-    // scores: one warp per (head, token), lanes split D
-    for (int it = warp; it < rep * page; it += kWarps) {
-      const int r = it / page;
-      const int t = it % page;
-      float s = 0.f;
-      for (int d = lane; d < D; d += 32)
-        s += qs[r * D + d] * to_float(ks[t * D + d]);
-      s = warp_sum(s) * scale;
-      const int pos = i * page + t;
-      if (lane == 0) ps[it] = (pos >= start && pos < len) ? s : kNegInf;
-    }
-    __syncthreads();
-
-    // online softmax statistics: one warp per query head, lanes over tokens
-    for (int r = warp; r < rep; r += kWarps) {
-      float mx = kNegInf;
-      for (int t = lane; t < page; t += 32) mx = fmaxf(mx, ps[r * page + t]);
-      mx = warp_max(mx);
-      const float m_prev = ms[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int t = lane; t < page; t += 32) {
-        const int pos = i * page + t;
-        // zero p on masked positions: with m_new still -1e30 on a page
-        // whose every position is masked, exp(s - m_new) would be exp(0)
-        const float p = (pos >= start && pos < len)
-                            ? expf(ps[r * page + t] - m_new) : 0.f;
-        ps[r * page + t] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        as[r] = alpha;
-        ls[r] = alpha * ls[r] + sum;
-        ms[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + p V; thread owns outputs tid + a * kThreads
+  for (int r = 0; r < REP; ++r) {
+    const T* qrow = q + ((size_t)b * H + h0 + r) * D + lane * E;
 #pragma unroll
-    for (int a = 0; a < kMaxAcc; ++a) {
-      const int idx = tid + a * kThreads;
-      if (idx < rep * D) {
-        const int r = idx / D;
-        const int d = idx % D;
-        float pv = 0.f;
-        for (int t = 0; t < page; ++t)
-          pv += ps[r * page + t] * to_float(vs[t * D + d]);
-        acc[a] = acc[a] * as[r] + pv;
-      }
-    }
+    for (int e = 0; e < E; ++e) qr[r][e] = r < nh ? to_float(qrow[e]) : 0.f;
   }
-  __syncthreads();  // ls is final
+  const int* table = block_tables + (size_t)b * pages_per_seq + p_begin;
+  for (int i = tid; i < n_pages; i += kThreads) tbl[i] = table[i];
+  const PageRing ring{smem, stage_bytes,
+                      reinterpret_cast<uint64_t*>(smem + lay.bars)};
+  if (tid == 0) ring.init();
+  __syncthreads();
 
-  T* ob = out + ((size_t)b * H + (size_t)kh * rep) * D;
-#pragma unroll
-  for (int a = 0; a < kMaxAcc; ++a) {
-    const int idx = tid + a * kThreads;
-    if (idx < rep * D) {
-      const int r = idx / D;
-      ob[idx] = from_float<T>(acc[a] / fmaxf(ls[r], 1e-30f));
+  const uint32_t tile_bytes = tile_elems * sizeof(T);
+  auto load_page = [&](int i) {        // thread 0: page i -> its stage
+    if (i < n_pages) {
+      const size_t off = ((size_t)kh * P + (size_t)tbl[i]) * tile_elems;
+      ring.expect(i, 2 * tile_bytes);
+      ring.copy(i, 0, k_pages + off, tile_bytes);
+      ring.copy(i, tile_bytes, v_pages + off, tile_bytes);
     }
+  };
+  if (tid == 0)
+    for (int i = 0; i < kStages - 1; ++i) load_page(i);
+
+  State<REP, E> st;
+  st.init();
+  for (int i = 0; i < n_pages; ++i) {
+    ring.wait(i);
+    __syncthreads();                   // every thread is done with page i - 1
+    if (tid == 0) load_page(i + kStages - 1);   // ... so refill its stage
+    const T* kt = reinterpret_cast<const T*>(ring.stage(i));
+    const T* vt = kt + tile_elems;
+    // this lane's E values of row t: 16 bytes (bf16) or 2 x 16 (f32)
+    auto row_of = [&](const T* tile) {
+      return [=](int t, float (&x)[E]) {
+        const uint4* src =
+            reinterpret_cast<const uint4*>(tile + t * D + lane * E);
+        constexpr int kVecs = E * sizeof(T) / 16;
+#pragma unroll
+        for (int j = 0; j < kVecs; ++j)
+          widen<T>(src[j], x + j * (E / kVecs));
+      };
+    };
+    attend_page<REP, E, G>(st, qr, page, group, (p_begin + i) * page, start,
+                           len, qk_scale, row_of(kt), row_of(vt));
   }
+  finish_split<T, REP, E, G>(smem, lay, st, group, lane, nh, B, H, Z, b, h0,
+                             split, sp.n_splits, out, part);
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const int* bt,
-           const int* lengths, const int* starts, void* out, int B, int H,
-           int K, int P, int page, int D, int pages_per_seq,
+           const int* lengths, const int* starts, void* out, float* part,
+           int B, int H, int K, int P, int page, int D, int pages_per_seq,
            cudaStream_t stream) {
-  const int rep = H / K;
-  const size_t smem = 2 * (size_t)page * D * sizeof(T) +
-                      sizeof(float) * ((size_t)rep * D + (size_t)rep * page +
-                                       3 * (size_t)rep);
-  auto kernel = paged_attention_kernel<T>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid(K, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bt, lengths, starts, static_cast<T*>(out), H,
-      K, P, page, D, pages_per_seq, (float)(1.0 / std::sqrt((double)D)));
-  return (int)cudaGetLastError();
+  return dispatch(H / K, D / E, [&](auto rep_c, auto g_c) {
+    constexpr int REP = decltype(rep_c)::value;
+    constexpr int G = decltype(g_c)::value;
+    const int head_tiles = (H / K + REP - 1) / REP;
+    const int Z = max_splits(pages_per_seq);
+    const size_t smem = smem_layout(2 * (size_t)page * D * sizeof(T),
+                                    kThreads / G, REP, D, pages_per_seq)
+                            .total;
+    auto kernel = paged_attention_kernel<T, REP, G>;
+    if (smem > 48 * 1024) {
+      cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return -(int)e;
+    }
+    const float qk_scale = (float)(kLog2e / std::sqrt((double)D));
+    kernel<<<dim3(K * head_tiles, B, Z), kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), bt, lengths, starts, static_cast<T*>(out),
+        part, B, H, K, P, page, pages_per_seq, head_tiles, Z, qk_scale);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return -(int)e;
+    if (Z == 1) return 1;
+    e = launch_merge<T>(lengths, starts, part, static_cast<T*>(out), B, H,
+                        D, page, pages_per_seq, Z, stream);
+    return e != cudaSuccess ? -(int)e : 2;
+  });
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest rep * D the kernel's register accumulators hold.
-int paged_attention_max_rep_d() { return kMaxAcc * kThreads; }
+// 1 when the kernel takes this head_dim and page size: D is 64, 128 or 256
+// (8, 16 or 32 lanes of 8 values per row).
+int paged_attention_shape_ok(int D, int page) {
+  return (D == 64 || D == 128 || D == 256) && page >= 1;
+}
+
+// f32 values of partials scratch a launch needs (its `part` argument).
+long long paged_attention_scratch_floats(int B, int H, int D,
+                                         int pages_per_seq) {
+  return (long long)scratch_floats(B, H, D, pages_per_seq);
+}
 
 // dtype: 0 = float32, 1 = bfloat16. starts may be NULL (all zeros).
 int paged_attention_launch(const void* q, const void* k_pages,
                            const void* v_pages, const void* block_tables,
                            const void* lengths, const void* starts, void* out,
-                           int B, int H, int K, int P, int page, int D,
-                           int pages_per_seq, int dtype, void* stream) {
+                           void* part, int B, int H, int K, int P, int page,
+                           int D, int pages_per_seq, int dtype,
+                           void* stream) {
+  if (!paged_attention_shape_ok(D, page) || K < 1 || H % K)
+    return -(int)cudaErrorInvalidValue;
   const int* bt = static_cast<const int*>(block_tables);
   const int* ln = static_cast<const int*>(lengths);
   const int* st = static_cast<const int*>(starts);
+  float* pt = static_cast<float*>(part);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k_pages, v_pages, bt, ln, st, out, B, H, K, P,
-                         page, D, pages_per_seq, s);
+    return launch<float>(q, k_pages, v_pages, bt, ln, st, out, pt, B, H, K,
+                         P, page, D, pages_per_seq, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k_pages, v_pages, bt, ln, st, out, B, H,
-                                 K, P, page, D, pages_per_seq, s);
-  return (int)cudaErrorInvalidValue;
+    return launch<__nv_bfloat16>(q, k_pages, v_pages, bt, ln, st, out, pt, B,
+                                 H, K, P, page, D, pages_per_seq, s);
+  return -(int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -1,46 +1,50 @@
-// Flash-decode attention over an int8 block-paged KV pool, for Hopper
-// (sm_90a).
+// Split-K flash-decode attention over an int8 block-paged KV pool, for
+// Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/paged_attention_int8.py
 // (`_kernel`, wrapper `paged_attention_int8`): one query token per sequence,
 // GQA with rep = H / K query heads per KV head, K/V stored as int8 with one
 // bf16 scale per (KV head, token) row, dequantized right after the load
-// (k * scale in f32), online softmax (m, l, acc) in f32, scale 1/sqrt(D),
-// positions outside [starts[b], lengths[b]) masked, output
-// acc / max(l, 1e-30) in q's dtype.
+// (k * scale in f32, in the TPU kernel's order: every element is widened
+// and scaled before it meets q or p; q is never quantized), online softmax
+// (m, l, acc) in f32, scale 1/sqrt(D), positions outside
+// [starts[b], lengths[b]) masked, output acc / max(l, 1e-30) in q's dtype.
 //
-// Design. The design of paged_attention.cu, with int8 tiles. One thread
-// block per (kv_head, sequence) reads its own block-table row, length and
-// start, then walks the sequence's live pages in order inside the block (the
-// TPU kernel's sequential grid axis becomes this loop). Per page it
-//   1. copies the (page, D) int8 K and V tiles into shared memory with
-//      16-byte coalesced loads (one tile of one KV head is contiguous in the
-//      pool; page * D is a whole number of 16-byte vectors), and the page's
-//      K and V scales beside them as f32;
-//   2. computes the rep x page scores, one warp per score, lanes split D,
-//      dequantizing each K element in registers;
-//   3. updates m and l per query head (one warp per head, lanes over page)
-//      and keeps p in shared memory, zeroing p on masked positions (the TPU
-//      kernel's fully-masked-page guard);
-//   4. rescales and accumulates acc = acc * alpha + p V in registers, each
-//      thread owning fixed (head, d) outputs and dequantizing V on the fly.
-// Pages with no valid position are skipped: they leave m, l and acc
-// unchanged in the TPU kernel too (alpha = 1, p = 0).
+// Bound. The kernel must read each valid K/V row once, with its scale: at
+// the serving shape (B=8, H=32, K=8, D=128, page 16, length 256) 4.39 MB,
+// about 1.31 us at 3.35 TB/s; at length 4096 68 MB, about 20 us. It is
+// bound by bytes.
 //
-// Bound. The kernel must read each valid K/V row once: at the main serving
-// shape (B=8, H=32, K=8, D=128, page=16, length 256) that is
-// 8 seq x 256 tokens x 8 heads x 128 x 2 (k, v) x 1 B = 4.19 MB of int8,
-// plus 65.5 kB of bf16 scales, 131 kB of bf16 q and output and 576 B of
-// tables, lengths and starts: 4.39 MB, about 1.31 us at 3.35 TB/s. Its
-// 34 MFLOP are far below the compute roof, so it is bound by bytes. Like
-// paged_attention.cu, this simple design is latency-bound instead: B*K = 64
-// blocks of 4 warps on 132 SMs, with a serial load -> barrier -> compute
-// chain per page. What it leaves for later: split-K over pages, cp.async or
-// TMA prefetch of the next page, dp4a or int8 tensor-core products on the
-// quantized payload.
+// Design: paged_attention.cu's, over int8 tiles (the split layout, the
+// page ring, the per-page math, the in-block combine and the merge pass are
+// shared, in paged_attention_common.cuh).
+//   * Grid (K x head tiles, B, splits), 2 pages per split at the serving
+//     shape (512 blocks), 32 at length 4096 (512 blocks; the f32 partials'
+//     round trip is 3% of the int8 K/V bytes there); a second launch
+//     merges splits in order, both from one C call.
+//   * The block's table slice is read once; one thread streams each page
+//     as four TMA bulk copies into a double buffer — the (page, D) int8 K
+//     and V tiles and the page's K and V scale rows (page * 2 bytes each,
+//     whole 16-byte vectors for a page that is a multiple of 8).
+//   * A thread owns E = 8 int8 values of D (an 8-byte shared-memory read;
+//     G = D / 8 lanes per row, a 4-step shuffle at D = 128). 16 values per
+//     thread would make the read 16 bytes, but double the registers that q
+//     and acc take for the tile's heads. The int8 -> f32 widening is exact
+//     (byte permute + one subtraction); the scale multiply follows, as in
+//     the TPU kernel.
+//   * Everything else as paged_attention.cu: q in registers, one online
+//     softmax per row group rescaled only when m grows, masked rows and
+//     pages skipped, the row groups combined in order at the end.
+//
+// Measured (PERF.md): at length 4096 the per-element work (widen, scale,
+// 4 FMAs for the scores and 4 for the output per K and V byte, the score
+// shuffles) outlasts the page copies, so the kernel is bound by issue,
+// not bytes.
 //
 // Interface: plain C, loaded with ctypes. Pointers are device pointers; the
-// launch goes on `stream`; the return value is cudaGetLastError().
+// launches go on `stream`; nothing is allocated, nothing synchronises. A
+// launch returns the number of kernels it launched (1, or 2 with the merge
+// pass) or a negative CUDA error code.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,38 +52,16 @@
 
 #include <cmath>
 
+#include "paged_attention_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxAcc = 16;          // rep * D <= kMaxAcc * kThreads
-constexpr float kNegInf = -1e30f;
+using namespace pa;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+constexpr int E = 8;                   // int8 values of D per thread
 
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int REP, int G>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 paged_attention_int8_kernel(const T* __restrict__ q,
                             const int8_t* __restrict__ k_pages,
                             const __nv_bfloat16* __restrict__ k_scales,
@@ -88,165 +70,150 @@ paged_attention_int8_kernel(const T* __restrict__ q,
                             const int* __restrict__ block_tables,
                             const int* __restrict__ lengths,
                             const int* __restrict__ starts,
-                            T* __restrict__ out, int H, int K, int P,
-                            int page, int D, int pages_per_seq,
-                            float scale) {
-  const int kh = blockIdx.x;
+                            T* __restrict__ out, float* __restrict__ part,
+                            int B, int H, int K, int P, int page,
+                            int pages_per_seq, int head_tiles, int Z,
+                            float qk_scale) {
+  constexpr int D = G * E;
+  constexpr int groups = kThreads / G;
+  const int kh = blockIdx.x / head_tiles;
+  const int h0 = kh * (H / K) + (blockIdx.x % head_tiles) * REP;
+  const int nh = min(REP, (kh + 1) * (H / K) - h0);
   const int b = blockIdx.y;
-  const int rep = H / K;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-
-  // shared memory: K tile | V tile (int8) | K scales | V scales | q | p |
-  // m | l | alpha (f32); page * D is a multiple of 16, so the f32 part
-  // starts aligned
-  extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* ks = reinterpret_cast<int8_t*>(smem);
-  int8_t* vs = ks + page * D;
-  float* ksc = reinterpret_cast<float*>(vs + page * D);
-  float* vsc = ksc + page;
-  float* qs = vsc + page;
-  float* ps = qs + rep * D;
-  float* ms = ps + rep * page;
-  float* ls = ms + rep;
-  float* as = ls + rep;
-
+  const int split = blockIdx.z;
   const int len = lengths[b];
   const int start = starts ? starts[b] : 0;
-  const int* table = block_tables + (size_t)b * pages_per_seq;
-  const T* qb = q + ((size_t)b * H + (size_t)kh * rep) * D;
+  const Split sp = split_plan(start, len, page, pages_per_seq);
+  if (split >= sp.n_splits) return;
+  const int p_begin = sp.first + split * sp.pages_per_split;
+  const int n_pages = max(min(sp.pages_per_split, sp.last - p_begin), 0);
 
-  for (int i = tid; i < rep * D; i += kThreads) qs[i] = to_float(qb[i]);
-  for (int r = tid; r < rep; r += kThreads) {
-    ms[r] = kNegInf;
-    ls[r] = 0.f;
-  }
-  float acc[kMaxAcc];
+  const int tid = threadIdx.x;
+  const int group = tid / G;
+  const int lane = tid % G;
+
+  // stage: K tile | V tile (int8, page * D each) | K scales | V scales
+  // (bf16, page each)
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t tile_bytes = page * D;
+  const uint32_t scale_bytes = page * 2;
+  const size_t stage_bytes = 2 * (size_t)tile_bytes + 2 * (size_t)scale_bytes;
+  const SmemLayout lay = smem_layout(stage_bytes, groups, REP, D,
+                                     pages_per_seq);
+  int* tbl = reinterpret_cast<int*>(smem + lay.table);
+
+  // q of the tile's heads in registers (heads past nh stay 0)
+  float qr[REP][E];
 #pragma unroll
-  for (int a = 0; a < kMaxAcc; ++a) acc[a] = 0.f;
-
-  const int first = max(start, 0) / page;
-  const int last = min((len + page - 1) / page, pages_per_seq);
-  const int tile_vecs = page * D / 16;
-
-  for (int i = first; i < last; ++i) {
-    __syncthreads();  // previous page's tiles, scales and p are not read now
-    const size_t row0 = ((size_t)kh * P + (size_t)table[i]) * page;
-    const uint4* ksrc = reinterpret_cast<const uint4*>(k_pages + row0 * D);
-    const uint4* vsrc = reinterpret_cast<const uint4*>(v_pages + row0 * D);
-    uint4* kdst = reinterpret_cast<uint4*>(ks);
-    uint4* vdst = reinterpret_cast<uint4*>(vs);
-    for (int v = tid; v < tile_vecs; v += kThreads) {
-      kdst[v] = __ldg(ksrc + v);
-      vdst[v] = __ldg(vsrc + v);
-    }
-    for (int t = tid; t < page; t += kThreads) {
-      ksc[t] = __bfloat162float(k_scales[row0 + t]);
-      vsc[t] = __bfloat162float(v_scales[row0 + t]);
-    }
-    __syncthreads();
-
-    // scores: one warp per (head, token), lanes split D; K dequantized as
-    // (int8 value) * (row scale) in f32, as the TPU kernel does
-    for (int it = warp; it < rep * page; it += kWarps) {
-      const int r = it / page;
-      const int t = it % page;
-      const float kscale = ksc[t];
-      float s = 0.f;
-      for (int d = lane; d < D; d += 32)
-        s += qs[r * D + d] * (static_cast<float>(ks[t * D + d]) * kscale);
-      s = warp_sum(s) * scale;
-      const int pos = i * page + t;
-      if (lane == 0) ps[it] = (pos >= start && pos < len) ? s : kNegInf;
-    }
-    __syncthreads();
-
-    // online softmax statistics: one warp per query head, lanes over tokens
-    for (int r = warp; r < rep; r += kWarps) {
-      float mx = kNegInf;
-      for (int t = lane; t < page; t += 32) mx = fmaxf(mx, ps[r * page + t]);
-      mx = warp_max(mx);
-      const float m_prev = ms[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int t = lane; t < page; t += 32) {
-        const int pos = i * page + t;
-        // zero p on masked positions: with m_new still -1e30 on a page
-        // whose every position is masked, exp(s - m_new) would be exp(0)
-        const float p = (pos >= start && pos < len)
-                            ? expf(ps[r * page + t] - m_new) : 0.f;
-        ps[r * page + t] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        as[r] = alpha;
-        ls[r] = alpha * ls[r] + sum;
-        ms[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + p V; thread owns outputs tid + a * kThreads
+  for (int r = 0; r < REP; ++r) {
+    const T* qrow = q + ((size_t)b * H + h0 + r) * D + lane * E;
 #pragma unroll
-    for (int a = 0; a < kMaxAcc; ++a) {
-      const int idx = tid + a * kThreads;
-      if (idx < rep * D) {
-        const int r = idx / D;
-        const int d = idx % D;
-        float pv = 0.f;
-        for (int t = 0; t < page; ++t)
-          pv += ps[r * page + t] *
-                (static_cast<float>(vs[t * D + d]) * vsc[t]);
-        acc[a] = acc[a] * as[r] + pv;
-      }
-    }
+    for (int e = 0; e < E; ++e) qr[r][e] = r < nh ? to_float(qrow[e]) : 0.f;
   }
-  __syncthreads();  // ls is final
+  const int* table = block_tables + (size_t)b * pages_per_seq + p_begin;
+  for (int i = tid; i < n_pages; i += kThreads) tbl[i] = table[i];
+  const PageRing ring{smem, stage_bytes,
+                      reinterpret_cast<uint64_t*>(smem + lay.bars)};
+  if (tid == 0) ring.init();
+  __syncthreads();
 
-  T* ob = out + ((size_t)b * H + (size_t)kh * rep) * D;
-#pragma unroll
-  for (int a = 0; a < kMaxAcc; ++a) {
-    const int idx = tid + a * kThreads;
-    if (idx < rep * D) {
-      const int r = idx / D;
-      ob[idx] = from_float<T>(acc[a] / fmaxf(ls[r], 1e-30f));
+  auto load_page = [&](int i) {        // thread 0: page i -> its stage
+    if (i < n_pages) {
+      const size_t row0 = ((size_t)kh * P + (size_t)tbl[i]) * page;
+      ring.expect(i, stage_bytes);
+      ring.copy(i, 0, k_pages + row0 * D, tile_bytes);
+      ring.copy(i, tile_bytes, v_pages + row0 * D, tile_bytes);
+      ring.copy(i, 2 * tile_bytes, k_scales + row0, scale_bytes);
+      ring.copy(i, 2 * tile_bytes + scale_bytes, v_scales + row0,
+                scale_bytes);
     }
+  };
+  if (tid == 0)
+    for (int i = 0; i < kStages - 1; ++i) load_page(i);
+
+  State<REP, E> st;
+  st.init();
+  for (int i = 0; i < n_pages; ++i) {
+    ring.wait(i);
+    __syncthreads();                   // every thread is done with page i - 1
+    if (tid == 0) load_page(i + kStages - 1);   // ... so refill its stage
+    const int8_t* kt = reinterpret_cast<const int8_t*>(ring.stage(i));
+    const int8_t* vt = kt + tile_bytes;
+    const __nv_bfloat16* ksc =
+        reinterpret_cast<const __nv_bfloat16*>(vt + tile_bytes);
+    const __nv_bfloat16* vsc = ksc + page;
+    // this lane's E values of row t, dequantized: (float)int8 * scale
+    auto row_of = [&](const int8_t* tile, const __nv_bfloat16* scales) {
+      return [=](int t, float (&x)[E]) {
+        const uint2 v =
+            *reinterpret_cast<const uint2*>(tile + t * D + lane * E);
+        const uint32_t* w = reinterpret_cast<const uint32_t*>(&v);
+#pragma unroll
+        for (int j = 0; j < E / 4; ++j) widen_int8x4(w[j], x + 4 * j);
+        const float scale = __bfloat162float(scales[t]);
+#pragma unroll
+        for (int e = 0; e < E; ++e) x[e] *= scale;
+      };
+    };
+    attend_page<REP, E, G>(st, qr, page, group, (p_begin + i) * page, start,
+                           len, qk_scale, row_of(kt, ksc), row_of(vt, vsc));
   }
+  finish_split<T, REP, E, G>(smem, lay, st, group, lane, nh, B, H, Z, b, h0,
+                             split, sp.n_splits, out, part);
 }
 
 template <typename T>
 int launch(const void* q, const int8_t* k, const __nv_bfloat16* ks,
            const int8_t* v, const __nv_bfloat16* vs, const int* bt,
-           const int* lengths, const int* starts, void* out, int B, int H,
-           int K, int P, int page, int D, int pages_per_seq,
+           const int* lengths, const int* starts, void* out, float* part,
+           int B, int H, int K, int P, int page, int D, int pages_per_seq,
            cudaStream_t stream) {
-  const int rep = H / K;
-  const size_t smem = 2 * (size_t)page * D +
-                      sizeof(float) * (2 * (size_t)page + (size_t)rep * D +
-                                       (size_t)rep * page + 3 * (size_t)rep);
-  auto kernel = paged_attention_int8_kernel<T>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid(K, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), k, ks, v, vs, bt, lengths, starts,
-      static_cast<T*>(out), H, K, P, page, D, pages_per_seq,
-      (float)(1.0 / std::sqrt((double)D)));
-  return (int)cudaGetLastError();
+  return dispatch(H / K, D / E, [&](auto rep_c, auto g_c) {
+    constexpr int REP = decltype(rep_c)::value;
+    constexpr int G = decltype(g_c)::value;
+    const int head_tiles = (H / K + REP - 1) / REP;
+    const int Z = max_splits(pages_per_seq);
+    const size_t smem = smem_layout(2 * (size_t)page * D + 4 * (size_t)page,
+                                    kThreads / G, REP, D, pages_per_seq)
+                            .total;
+    auto kernel = paged_attention_int8_kernel<T, REP, G>;
+    if (smem > 48 * 1024) {
+      cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return -(int)e;
+    }
+    const float qk_scale = (float)(kLog2e / std::sqrt((double)D));
+    kernel<<<dim3(K * head_tiles, B, Z), kThreads, smem, stream>>>(
+        static_cast<const T*>(q), k, ks, v, vs, bt, lengths, starts,
+        static_cast<T*>(out), part, B, H, K, P, page, pages_per_seq,
+        head_tiles, Z, qk_scale);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return -(int)e;
+    if (Z == 1) return 1;
+    e = launch_merge<T>(lengths, starts, part, static_cast<T*>(out), B, H,
+                        D, page, pages_per_seq, Z, stream);
+    return e != cudaSuccess ? -(int)e : 2;
+  });
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest rep * D the kernel's register accumulators hold.
-int paged_attention_int8_max_rep_d() { return kMaxAcc * kThreads; }
+// 1 when the kernel takes this head_dim and page size: D / E lanes per row
+// is 8, 16 or 32, and a page's scale row (page bf16) is whole 16-byte
+// vectors (page a multiple of 8).
+int paged_attention_int8_shape_ok(int D, int page) {
+  const int G = D / E;
+  return D % E == 0 && (G == 8 || G == 16 || G == 32) && page >= 8 &&
+         page % 8 == 0;
+}
+
+// f32 values of partials scratch a launch needs (its `part` argument).
+long long paged_attention_int8_scratch_floats(int B, int H, int D,
+                                              int pages_per_seq) {
+  return (long long)scratch_floats(B, H, D, pages_per_seq);
+}
 
 // dtype of q and out: 0 = float32, 1 = bfloat16. Pages are int8, scales
 // bf16. starts may be NULL (all zeros).
@@ -255,9 +222,11 @@ int paged_attention_int8_launch(const void* q, const void* k_pages,
                                 const void* v_scales,
                                 const void* block_tables,
                                 const void* lengths, const void* starts,
-                                void* out, int B, int H, int K, int P,
-                                int page, int D, int pages_per_seq,
+                                void* out, void* part, int B, int H, int K,
+                                int P, int page, int D, int pages_per_seq,
                                 int dtype, void* stream) {
+  if (!paged_attention_int8_shape_ok(D, page) || K < 1 || H % K)
+    return -(int)cudaErrorInvalidValue;
   const int8_t* k = static_cast<const int8_t*>(k_pages);
   const int8_t* v = static_cast<const int8_t*>(v_pages);
   const __nv_bfloat16* ks = static_cast<const __nv_bfloat16*>(k_scales);
@@ -265,14 +234,15 @@ int paged_attention_int8_launch(const void* q, const void* k_pages,
   const int* bt = static_cast<const int*>(block_tables);
   const int* ln = static_cast<const int*>(lengths);
   const int* st = static_cast<const int*>(starts);
+  float* pt = static_cast<float*>(part);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k, ks, v, vs, bt, ln, st, out, B, H, K, P, page,
-                         D, pages_per_seq, s);
+    return launch<float>(q, k, ks, v, vs, bt, ln, st, out, pt, B, H, K, P,
+                         page, D, pages_per_seq, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, ks, v, vs, bt, ln, st, out, B, H, K,
-                                 P, page, D, pages_per_seq, s);
-  return (int)cudaErrorInvalidValue;
+    return launch<__nv_bfloat16>(q, k, ks, v, vs, bt, ln, st, out, pt, B, H,
+                                 K, P, page, D, pages_per_seq, s);
+  return -(int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -1,12 +1,20 @@
 """Hopper kernel: decode attention over a block-paged KV pool.
 
 The CUDA source is ``csrc/paged_attention.cu`` (its header comment gives the
-design and the bound); ``kernels/build.py`` compiles it with ``nvcc`` for
-``sm_90a`` at first use into ``build/kernels/libpaged_attention-<hash>.so``
-and loads it with ctypes.
+design and the bound) with ``csrc/paged_attention_common.cuh`` (the split
+layout and the merge pass it shares with the int8 kernel);
+``kernels/build.py`` compiles it with ``nvcc`` for ``sm_90a`` at first use
+into ``build/kernels/libpaged_attention-<hash>.so`` and loads it with ctypes.
+One call launches the split pass and, when a sequence has more than one
+split, the merge pass; the wrapper allocates their f32 partials with
+``torch.empty`` (the kernel allocates nothing, so the call can be captured
+in a CUDA graph).
 
-``launches`` counts kernel launches made through ``paged_attention``; a run
-sets it to 0 and reads it back to show that a path went through the kernel.
+``launches`` counts the CUDA kernels launched through ``paged_attention``:
+each call adds what its C entry reports, 1 for the split pass and 1 more
+for the merge pass (launched whenever the table is wide enough for a
+sequence to have two splits). A run sets it to 0 and reads it back to show
+that a path went through the kernel.
 """
 from __future__ import annotations
 
@@ -23,10 +31,12 @@ launches = 0
 
 def _bind(lib):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.paged_attention_launch.argtypes = [ptr] * 7 + [i32] * 8 + [ptr]
+    lib.paged_attention_launch.argtypes = [ptr] * 8 + [i32] * 8 + [ptr]
     lib.paged_attention_launch.restype = i32
-    lib.paged_attention_max_rep_d.argtypes = []
-    lib.paged_attention_max_rep_d.restype = i32
+    lib.paged_attention_shape_ok.argtypes = [i32, i32]
+    lib.paged_attention_shape_ok.restype = i32
+    lib.paged_attention_scratch_floats.argtypes = [i32] * 4
+    lib.paged_attention_scratch_floats.restype = ctypes.c_longlong
 
 
 LIB = KernelLibrary("paged_attention", _bind)
@@ -84,17 +94,20 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, starts=None):
         raise ValueError("K/V pools must be 16-byte aligned")
     b, h, d = q.shape
     kheads, n_phys, page, _ = k_pages.shape
-    if (h // kheads) * d > lib.paged_attention_max_rep_d():
-        raise ValueError(f"rep * head_dim = {(h // kheads) * d} exceeds the "
-                         "kernel's accumulator capacity")
+    width = block_tables.shape[1]
+    if not lib.paged_attention_shape_ok(d, page):
+        raise ValueError(f"head_dim {d} not taken: the kernel takes 64, 128 "
+                         "or 256")
     out = torch.empty_like(q)
+    part = torch.empty(lib.paged_attention_scratch_floats(b, h, d, width),
+                       dtype=torch.float32, device=q.device)
     rc = lib.paged_attention_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(),
         starts.data_ptr() if starts is not None else None, out.data_ptr(),
-        b, h, kheads, n_phys, page, d, block_tables.shape[1],
+        part.data_ptr(), b, h, kheads, n_phys, page, d, width,
         _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"paged_attention launch failed: CUDA error {rc}")
-    launches += 1
+    if rc < 0:
+        raise RuntimeError(f"paged_attention launch failed: CUDA error {-rc}")
+    launches += rc
     return out

@@ -2,18 +2,21 @@
 (per-token, per-kv-head symmetric scales), and the quantization it reads.
 
 The CUDA source is ``csrc/paged_attention_int8.cu`` (its header comment
-gives the design and the bound); ``kernels/build.py`` compiles it with
-``nvcc`` for ``sm_90a`` at first use into
-``build/kernels/libpaged_attention_int8-<hash>.so`` and loads it with ctypes.
+gives the design and the bound) with ``csrc/paged_attention_common.cuh``;
+``kernels/build.py`` compiles it with ``nvcc`` for ``sm_90a`` at first use
+into ``build/kernels/libpaged_attention_int8-<hash>.so`` and loads it with
+ctypes. As in ``paged_attention``, one call launches the split and merge
+passes, over f32 partials the wrapper allocates.
 
 ``quantize_pages`` / ``dequantize_pages`` are plain PyTorch: the reference
 computes them outside its kernel too, and the pool, the decode step and the
 kernel's plain version all use these two functions, so quantize -> serve ->
 replicate -> promote round-trips bit for bit.
 
-``launches`` counts kernel launches made through ``paged_attention_int8``; a
-run sets it to 0 and reads it back to show that a path went through the
-kernel.
+``launches`` counts the CUDA kernels launched through
+``paged_attention_int8``: each call adds what its C entry reports, 1 for the
+split pass and 1 more for the merge pass. A run sets it to 0 and reads it
+back to show that a path went through the kernel.
 """
 from __future__ import annotations
 
@@ -54,10 +57,12 @@ def dequantize_pages(q, scales):
 
 def _bind(lib):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.paged_attention_int8_launch.argtypes = [ptr] * 9 + [i32] * 8 + [ptr]
+    lib.paged_attention_int8_launch.argtypes = [ptr] * 10 + [i32] * 8 + [ptr]
     lib.paged_attention_int8_launch.restype = i32
-    lib.paged_attention_int8_max_rep_d.argtypes = []
-    lib.paged_attention_int8_max_rep_d.restype = i32
+    lib.paged_attention_int8_shape_ok.argtypes = [i32, i32]
+    lib.paged_attention_int8_shape_ok.restype = i32
+    lib.paged_attention_int8_scratch_floats.argtypes = [i32] * 4
+    lib.paged_attention_int8_scratch_floats.restype = ctypes.c_longlong
 
 
 LIB = KernelLibrary("paged_attention_int8", _bind)
@@ -121,23 +126,30 @@ def paged_attention_int8(q, k_pages, k_scales, v_pages, v_scales,
     if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
         raise ValueError("paged_attention_int8's CUDA kernel needs every "
                          "tensor on one CUDA device")
-    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError("int8 K/V pools must be 16-byte aligned")
+    if any(t.data_ptr() % 16 for t in (k_pages, v_pages, k_scales,
+                                       v_scales)):
+        raise ValueError("int8 K/V pools and their scales must be 16-byte "
+                         "aligned")
     b, h, d = q.shape
     kheads, n_phys, page, _ = k_pages.shape
-    if (h // kheads) * d > lib.paged_attention_int8_max_rep_d():
-        raise ValueError(f"rep * head_dim = {(h // kheads) * d} exceeds the "
-                         "kernel's accumulator capacity")
+    width = block_tables.shape[1]
+    if not lib.paged_attention_int8_shape_ok(d, page):
+        raise ValueError(f"head_dim {d} or page size {page} not taken: the "
+                         "kernel takes head_dim 64, 128 or 256 and a page "
+                         "that is a multiple of 8")
     out = torch.empty_like(q)
+    part = torch.empty(
+        lib.paged_attention_int8_scratch_floats(b, h, d, width),
+        dtype=torch.float32, device=q.device)
     rc = lib.paged_attention_int8_launch(
         q.data_ptr(), k_pages.data_ptr(), k_scales.data_ptr(),
         v_pages.data_ptr(), v_scales.data_ptr(), block_tables.data_ptr(),
         lengths.data_ptr(),
         starts.data_ptr() if starts is not None else None, out.data_ptr(),
-        b, h, kheads, n_phys, page, d, block_tables.shape[1],
+        part.data_ptr(), b, h, kheads, n_phys, page, d, width,
         _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
+    if rc < 0:
         raise RuntimeError(f"paged_attention_int8 launch failed: CUDA error "
-                           f"{rc}")
-    launches += 1
+                           f"{-rc}")
+    launches += rc
     return out

@@ -7,6 +7,9 @@ runs where only PyTorch is installed:
   python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 import dataclasses
+import importlib
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -24,6 +27,7 @@ from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture
@@ -32,6 +36,15 @@ def card():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    """chip_smoke.py, for its attention-kernel checks (split-edge cases,
+    batch invariance, error limits, kernels per call): one copy serves the
+    script and these tests."""
+    sys.path.insert(0, str(ROOT))
+    return importlib.import_module("chip_smoke")
 
 
 def _case(b, h, kheads, d, page, pps, dtype, seed=0):
@@ -58,28 +71,31 @@ def _case(b, h, kheads, d, page, pps, dtype, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [
     (8, 32, 8, 128, 16, 16),   # llama3-8b serving shape
+    (8, 32, 8, 128, 16, 256),  # long: 256 pages (length up to 4096)
     (1, 4, 4, 64, 16, 2),      # MHA
     (3, 8, 1, 128, 16, 3),     # MQA
     (2, 16, 8, 128, 32, 2),    # bigger page
     (4, 4, 2, 256, 16, 5),     # head_dim 256
     (4, 4, 2, 64, 8, 5),       # reduced test config (page 8, D 64)
 ])
-def test_paged_attention_kernel_matches_plain(card, dtype, shape):
+def test_paged_attention_kernel_matches_plain(card, smoke, dtype, shape):
     q, kp, vp, bt, ln, st = _case(*shape, dtype)
     for starts in (None, st):
         before = PA.launches
         got = PA.paged_attention(q, kp, vp, bt, ln, starts)
         torch.cuda.synchronize()
-        assert PA.launches == before + 1
+        assert PA.launches == before + smoke.launches_per_call(shape[-1])
         want = paged_attention_ref(q, kp, vp, bt, ln, starts)
         assert got.dtype == dtype and got.shape == q.shape
         torch.testing.assert_close(got.float(), want.float(),
                                    rtol=TOL[dtype], atol=TOL[dtype])
+        err, limit = smoke.seq_errors(got, want, dtype)
+        assert bool((err <= limit).all())
 
 
 @pytest.mark.gpu
-def test_decode_step_runs_through_kernel(card):
-    """One paged decode step of the reduced config on the card launches the
+def test_decode_step_runs_through_kernel(card, smoke):
+    """One paged decode step of the reduced config on the card calls the
     kernel once per layer and matches the same step on the CPU."""
     cfg = dataclasses.replace(get_config("llama3-8b").reduced(),
                               dtype="float32", kv_dtype="float32")
@@ -101,7 +117,8 @@ def test_decode_step_runs_through_kernel(card):
     gpu = PD.decode_step_paged(cfg, gpu_params, tok.cuda(), kg, vg,
                                tables.cuda(), pos.cuda())
     torch.cuda.synchronize()
-    assert PA.launches == before + cfg.n_layers
+    assert PA.launches == before + cfg.n_layers * smoke.launches_per_call(
+        tables.shape[1])
     torch.testing.assert_close(gpu[1].cpu(), cpu[1], rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(kg.cpu(), kp, rtol=1e-5, atol=1e-5)
 
@@ -110,9 +127,11 @@ def test_decode_step_runs_through_kernel(card):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [
     (8, 32, 8, 128, 16, 16),   # llama3-8b serving shape
+    (8, 32, 8, 128, 16, 256),  # long: 256 pages (length up to 4096)
     (4, 4, 2, 64, 8, 5),       # reduced test config (page 8, D 64)
 ])
-def test_paged_attention_int8_kernel_matches_plain(card, dtype, shape):
+def test_paged_attention_int8_kernel_matches_plain(card, smoke, dtype,
+                                                   shape):
     """The int8 kernel against its plain version on the same quantized pool
     (one all-zero token row, scale 1), with and without window starts."""
     q, kp, vp, bt, ln, st = _case(*shape, torch.float32)
@@ -125,11 +144,53 @@ def test_paged_attention_int8_kernel_matches_plain(card, dtype, shape):
         before = PA8.launches
         got = PA8.paged_attention_int8(q, kq, ks, vq, vs, bt, ln, starts)
         torch.cuda.synchronize()
-        assert PA8.launches == before + 1
+        assert PA8.launches == before + smoke.launches_per_call(shape[-1])
         want = paged_attention_int8_ref(q, kq, ks, vq, vs, bt, ln, starts)
         assert got.dtype == dtype and got.shape == q.shape
         torch.testing.assert_close(got.float(), want.float(),
                                    rtol=TOL[dtype], atol=TOL[dtype])
+        err, limit = smoke.seq_errors(got, want, dtype)
+        assert bool((err <= limit).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("width", [16, 256])
+def test_split_boundaries_length_1_and_masked_splits(card, smoke, kind,
+                                                     width):
+    """Both kernels against their plain versions at lengths around split
+    boundaries, at length 1, and with window starts that mask whole splits
+    (chip_smoke's edge cases, bf16 q, at the serving and the long table
+    width)."""
+    shape = smoke.SERVE_SHAPE if width == 16 else smoke.LONG_SHAPE
+    dtype = torch.bfloat16
+    q, kp, vp, bt, ln, st = smoke.edge_case(shape, torch.float32,
+                                            seed=width)
+    if kind == "int8":
+        kernel, plain = PA8.paged_attention_int8, paged_attention_int8_ref
+        args = (q.to(dtype), *smoke.quantized(kp, vp), bt, ln)
+    else:
+        kernel, plain = PA.paged_attention, paged_attention_ref
+        args = (q.to(dtype), kp.to(dtype), vp.to(dtype), bt, ln)
+    for starts in (None, st):
+        smoke.check_against_plain(f"{kind} width {width}", kernel, plain,
+                                  args, starts, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batch_invariance(card, smoke, kind, dtype):
+    """One sequence's output is the same bits alone (B = 1), inside a batch
+    of 8, and in another slot over other physical pages holding the same
+    bytes; two calls on the same inputs are bit-identical."""
+    if kind == "int8":
+        smoke.batch_invariance(kind, PA8.paged_attention_int8,
+                               smoke.quantized, dtype)
+    else:
+        smoke.batch_invariance(kind, PA.paged_attention,
+                               lambda k, v: (k.to(dtype), v.to(dtype)),
+                               dtype)
 
 
 @pytest.mark.gpu
@@ -144,9 +205,9 @@ def test_quantize_pages_on_card_matches_cpu(card):
 
 
 @pytest.mark.gpu
-def test_int8_decode_step_runs_through_kernel(card):
+def test_int8_decode_step_runs_through_kernel(card, smoke):
     """One paged decode step of the reduced config on an int8 pool on the
-    card launches the int8 kernel once per layer (the bf16 kernel never)
+    card calls the int8 kernel once per layer (the bf16 kernel never)
     and matches the same step on the CPU."""
     cfg = dataclasses.replace(get_config("llama3-8b").reduced(),
                               dtype="float32", kv_dtype="float32")
@@ -174,7 +235,8 @@ def test_int8_decode_step_runs_through_kernel(card):
                                tables.to(card), pos.to(card), k_scales=ksg,
                                v_scales=vsg)
     torch.cuda.synchronize()
-    assert PA8.launches == before + cfg.n_layers
+    assert PA8.launches == before + cfg.n_layers * \
+        smoke.launches_per_call(tables.shape[1])
     assert PA.launches == before_bf16
     torch.testing.assert_close(gpu[1].cpu(), cpu[1], rtol=1e-4, atol=1e-4)
     # the rows this step wrote agree within one quantization step; every

@@ -28,12 +28,20 @@ Phases (each raises, and the script exits non-zero, if its check fails):
                 (q in bf16 and f32, all shapes, one all-zero row with
                 scale 1), and quantize_pages on the card against the CPU,
                 bit for bit.
-  5. kernel (ssd_scan) — the SSD scan kernel against its plain sequential
-                version and the plain chunked form, at the full-width
-                mamba2-130m shape (b 8, s 512, h 24, p 64, n 128, chunk 256;
-                B and C bf16, then f32; with an initial state), a ragged
-                chunk = s = 200, and the reduced shape (h 16, p 32, n 32,
-                chunk 32); times kernel and plain versions in a CUDA graph.
+  5. kernel (ssd_scan) — the SSD scan kernels (the C·Bᵀ pass, then the
+                scan) against the plain sequential version and the plain
+                chunked form, at the full-width mamba2-130m shape (b 8,
+                s 512, h 24, p 64, n 128, chunk 256; B and C bf16, then
+                f32; with an initial state), a ragged chunk = s = 200, the
+                reduced shape (h 16, p 32, n 32, chunk 32), p 24 and 40
+                (not a multiple of the 16-row P tile), p 16 (one P tile),
+                s 33, 64 and 65 at chunk = s (around a 32-position
+                sub-chunk) and B and C rows that start off a 16-byte
+                boundary; two calls must give equal bits; the precision of
+                f32, plain TF32 and split TF32 products against an f64
+                recurrence; times kernel and plain versions in a CUDA graph
+                with the grid size, and both bounds (f32 CUDA cores, tensor
+                cores) with the share of each.
   6. serving  — the port's HTTP server with full-width Llama-3.1-8B (random
                 weights from a seeded torch.Generator), 2 instances, ring
                 replication on; concurrent completions, greedy determinism,
@@ -51,17 +59,19 @@ Phases (each raises, and the script exits non-zero, if its check fails):
                 torch.Generator seed 0) through api.prefill and
                 api.decode_step: 8 prompts of 512 tokens (2 chunks), then 8
                 of 200 (one ragged chunk), 64 greedy tokens each, twice:
-                identical streams, exactly n_layers scan launches per
-                prefill and no plain scan; in f32, kernel prefill against
-                the plain chunked form, and forward at t against prefill(:t)
-                plus one decode step; prefill and decode-step profiles.
+                identical streams, exactly 2 scan launches (C·Bᵀ pass and
+                scan) per layer per prefill and no plain scan; in f32,
+                kernel prefill against the plain chunked form, and forward
+                at t against prefill(:t) plus one decode step; prefill and
+                decode-step profiles.
   13. summary — one JSON line of kernels, the card line, and the final
                 {"ok": true, "device": ...} line.
 
 Each path's kernel launch counts are set to 0 just before the path and read
 just after; launches made to compare a kernel with its plain version are
 not counted. An attention call counts each CUDA kernel it launches: its
-split pass and, over a table wide enough for two splits, its merge pass.
+split pass and, over a table wide enough for two splits, its merge pass; a
+scan call its C·Bᵀ pass and its scan.
 """
 from __future__ import annotations
 
@@ -98,6 +108,7 @@ from repro_torch.serving.server import serve  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,         # dense tensor-core bf16
               torch.float32: 67e12}           # f32 outside the tensor cores
+TF32_PEAK = 495e12                            # dense tensor-core TF32
 TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-5}
 LAYERS_PER_STEP = 32                          # one launch per layer per step
 SERVE_SHAPE = (8, 32, 8, 128, 16, 16, 257)    # B, H, K, D, page, pps, P
@@ -512,10 +523,12 @@ def kernel_int8_phase() -> dict:
 
 # -- 5. kernel (ssd_scan) ------------------------------------------------------
 
-def ssd_case(shape, bc_dtype, seed, with_h0=False):
+def ssd_case(shape, bc_dtype, seed, with_h0=False, odd_rows=False):
     """Scan inputs on the card at the reference sweep's scales (x * 0.5,
     a = -|N(0,1)| * 0.3, B and C * 0.3); B and C are strided halves of one
-    (b, s, 2n) tensor, as the model's are slices of the conv output."""
+    (b, s, 2n) tensor, as the model's are slices of the conv output.
+    ``odd_rows``: rows of 2n + 5 values, so no row of B or C starts on a
+    16-byte boundary (the wrapper copies them to aligned rows)."""
     b, s, h, p, n, _ = shape
     g = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -523,17 +536,22 @@ def ssd_case(shape, bc_dtype, seed, with_h0=False):
         return torch.randn(size, generator=g, device="cuda") * scale
 
     xdt, a = rnd(0.5, b, s, h, p), -rnd(0.3, b, s, h).abs()
-    bc = rnd(0.3, b, s, 2 * n).to(bc_dtype)
+    bc = rnd(0.3, b, s, 2 * n + (5 if odd_rows else 0)).to(bc_dtype)
     h0 = rnd(1.0, b, h, p, n) if with_h0 else None
-    return xdt, a, bc[..., :n], bc[..., n:], h0
+    return xdt, a, bc[..., :n], bc[..., n:2 * n], h0
 
 
 def ssd_bound_ms(xdt, B, h0=None):
-    """Least time for one scan: the bytes it must move (x, a, B, C, y, the
-    final state and h0, each once) over the memory rate, or its least
-    operations — per position and head one multiply-add per state element
-    for the update and one for the output, 4 * b * s * h * p * n, on the
-    f32 CUDA cores — over their peak rate; the larger."""
+    """Least time for one scan on each route: the bytes it must move (x, a,
+    B, C, y, the final state and h0, each once) over the memory rate, or
+    its least operations — per position and head one multiply-add per state
+    element for the update and one for the output, 4 * b * s * h * p * n —
+    over the peak rate of the units that do them; the larger. On the f32
+    CUDA cores the operations run at 67 TFLOP/s. On the tensor cores (the
+    kernel's route) an f32-accurate multiply-add is three TF32 products
+    (the error-compensated split), two where B and C are bf16 (exact in
+    TF32), at 495 TFLOP/s. Returns {"tensor_cores": (ms, by),
+    "cuda_cores": (ms, by)}."""
     b, s, h, p = xdt.shape
     n = B.shape[-1]
     state = b * h * p * n * 4
@@ -541,10 +559,14 @@ def ssd_bound_ms(xdt, B, h0=None):
               + 2 * b * s * n * B.element_size()
               + state * (2 if h0 is not None else 1))
     flops = 4 * b * s * h * p * n
+    products = 2 if B.dtype == torch.bfloat16 else 3
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[torch.float32]
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
-        else "operations"
+    out = {}
+    for route, t_ops in (("tensor_cores", products * flops / TF32_PEAK),
+                         ("cuda_cores", flops / PEAK_FLOPS[torch.float32])):
+        out[route] = (max(t_bytes, t_ops) * 1e3,
+                      "bytes" if t_bytes >= t_ops else "operations")
+    return out
 
 
 def ssd_error(got, want):
@@ -555,18 +577,91 @@ def ssd_error(got, want):
             float((diff - SSD_TOL * (1 + want.abs())).max()))
 
 
+def ssd_seq_f64(xdt, a, B, C):
+    """The sequential recurrence in f64: the yardstick of the precision
+    table."""
+    x, a, B, C = (t.double() for t in (xdt, a, B, C))
+    b, s, h, p = x.shape
+    state = torch.zeros((b, h, p, B.shape[-1]), dtype=torch.float64,
+                        device=x.device)
+    ys = []
+    for t in range(s):
+        state = state * a[:, t].exp()[..., None, None] + \
+            x[:, t, ..., None] * B[:, t, None, None, :]
+        ys.append(torch.einsum("bhpn,bn->bhp", state, C[:, t]))
+    return torch.stack(ys, 1), state
+
+
+def ssd_precision_table():
+    """Error of three ways to form the scan's products at mamba2-130m's
+    head geometry (b 2, s 512, h 4, p 64, n 128, the reference sweep's
+    scales) against the f64 recurrence: the plain chunked form at chunk 32
+    with f32 products, the same with TF32 products (torch's matmul TF32
+    switch on for that call only), and the kernel (TF32 with the
+    error-compensated split). The kernel's rows must be inside the
+    tolerance and the plain TF32 rows outside it (so the switch reached
+    the matmuls and the table shows what the split buys)."""
+    shape = (2, 512, 4, 64, 128, 32)
+    for bc_dtype in (torch.float32, torch.bfloat16):
+        xdt, a, B, C, _ = ssd_case(shape, bc_dtype, seed=21)
+        want_y, want_h = ssd_seq_f64(xdt, a, B, C)
+        rows = {"f32 products (plain chunked, chunk 32)":
+                ssm.ssd_chunked_plain(xdt, a, B, C, None, 32)}
+        was = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            rows["plain TF32 products (plain chunked, chunk 32)"] = \
+                ssm.ssd_chunked_plain(xdt, a, B, C, None, 32)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = was
+        rows["kernel: TF32, error-compensated split"] = SSD.ssd_scan(
+            xdt, a, B, C, chunk=32)
+        for what, (y, hf) in rows.items():
+            err_y, over_y = ssd_error(y.double(), want_y)
+            err_h, over_h = ssd_error(hf.double(), want_h)
+            print(f"ssd_scan precision, B/C {bc_dtype}, {what}: max_abs_err "
+                  f"y {err_y:.3e}, state {err_h:.3e}; worst excess over "
+                  f"{SSD_TOL:.0e}(1+|want|): y {over_y:+.3e}, state "
+                  f"{over_h:+.3e}")
+            if what.startswith("kernel"):
+                check(max(over_y, over_h) <= 0,
+                      "ssd_scan outside the tolerance against f64")
+            if what.startswith("plain TF32"):
+                check(over_y > 0, "plain TF32 products inside the tolerance: "
+                      "the TF32 switch did not reach the matmuls")
+
+
+SSD_CASES = [   # shape, B/C dtype, h0, rows of 2n + 5 (unaligned B and C)
+    (SSD_SERVE, torch.bfloat16, False, False),
+    (SSD_SERVE, torch.float32, False, False),
+    (SSD_SERVE, torch.bfloat16, True, False),
+    (SSD_SERVE, torch.float32, True, False),
+    ((8, 200, 24, 64, 128, 200), torch.bfloat16, False, False),  # ragged
+    (SSD_REDUCED, torch.float32, False, False),
+    (SSD_REDUCED, torch.float32, True, False),
+    (SSD_REDUCED, torch.bfloat16, False, False),
+    ((2, 128, 4, 24, 64, 64), torch.bfloat16, True, False),   # p not a tile
+    ((2, 96, 3, 40, 128, 32), torch.float32, False, False),
+    ((2, 33, 4, 64, 128, 33), torch.bfloat16, False, False),  # Q edges
+    ((2, 64, 4, 64, 128, 64), torch.float32, True, False),
+    ((2, 65, 4, 64, 128, 65), torch.bfloat16, True, False),
+    ((2, 128, 8, 16, 128, 64), torch.bfloat16, False, False),  # one P tile
+    ((2, 128, 4, 64, 128, 64), torch.bfloat16, True, True),    # unaligned
+    ((2, 128, 4, 64, 128, 64), torch.float32, True, True),
+    ((2, 96, 4, 64, 256, 32), torch.bfloat16, True, False),    # N 129-256
+    ((2, 96, 4, 64, 256, 32), torch.float32, True, False),
+    ((2, 96, 4, 32, 200, 96), torch.bfloat16, True, False),
+    ((2, 96, 4, 32, 200, 96), torch.float32, False, True),
+    ((2, 64, 4, 18, 20, 32), torch.float32, True, True),  # P, N padded
+    ((2, 64, 4, 18, 20, 32), torch.bfloat16, False, False),
+]
+
+
 def ssd_scan_phase() -> dict:
-    cases = [(SSD_SERVE, torch.bfloat16, False),
-             (SSD_SERVE, torch.float32, False),
-             (SSD_SERVE, torch.bfloat16, True),
-             ((8, 200, 24, 64, 128, 200), torch.bfloat16, False),  # ragged
-             (SSD_REDUCED, torch.float32, False),
-             (SSD_REDUCED, torch.float32, True),
-             (SSD_REDUCED, torch.bfloat16, False)]
     max_err = 0.0
-    for i, (shape, bc_dtype, with_h0) in enumerate(cases):
+    for i, (shape, bc_dtype, with_h0, odd) in enumerate(SSD_CASES):
         xdt, a, B, C, h0 = ssd_case(shape, bc_dtype, seed=i,
-                                    with_h0=with_h0)
+                                    with_h0=with_h0, odd_rows=odd)
         chunk = shape[-1]
         y, hf = SSD.ssd_scan(xdt, a, B, C, chunk=chunk, h0=h0)
         torch.cuda.synchronize()
@@ -575,13 +670,20 @@ def ssd_scan_phase() -> dict:
         for what, (ry, rh) in plain.items():
             err_y, over_y = ssd_error(y, ry)
             err_h, over_h = ssd_error(hf, rh)
-            print(f"ssd_scan check {shape} B/C {bc_dtype} h0={with_h0} vs "
-                  f"plain {what}: max_abs_err y {err_y:.3e}, state "
-                  f"{err_h:.3e} (limit {SSD_TOL:.0e} + {SSD_TOL:.0e}|want|)")
+            print(f"ssd_scan check {shape} B/C {bc_dtype} h0={with_h0}"
+                  f"{' unaligned rows' if odd else ''} vs plain {what}: "
+                  f"max_abs_err y {err_y:.3e}, state {err_h:.3e} (limit "
+                  f"{SSD_TOL:.0e} + {SSD_TOL:.0e}|want|)")
             check(math.isfinite(err_y + err_h) and max(over_y, over_h) <= 0,
                   f"ssd_scan disagrees with the plain {what} version")
             if what == "sequential":
                 max_err = max(max_err, err_y, err_h)
+        if shape == SSD_SERVE:
+            y2, hf2 = SSD.ssd_scan(xdt, a, B, C, chunk=chunk, h0=h0)
+            check(torch.equal(y, y2) and torch.equal(hf, hf2),
+                  "ssd_scan: two calls on the same inputs differ")
+    print("ssd_scan: two calls bit-identical at every serving-shape case")
+    ssd_precision_table()
     # timing at the serving shape; 2 sets x 59 MB > the 50 MB L2
     sets = [ssd_case(SSD_SERVE, torch.bfloat16, seed=100 + j)[:4]
             for j in range(2)]
@@ -597,18 +699,28 @@ def ssd_scan_phase() -> dict:
     plain_ms = graph_ms(ssd_scan_ref, sets, reps=5)
     chunked_ms = graph_ms(chunked, sets, reps=10)
     eager_ms = time_ms(kernel, sets)
-    bms, by = ssd_bound_ms(sets[0][0], sets[0][2])
+    bounds = ssd_bound_ms(sets[0][0], sets[0][2])
+    (bms, by), (cms, cby) = bounds["tensor_cores"], bounds["cuda_cores"]
+    b, s, h, p, n, _ = SSD_SERVE
+    grid = SSD.grid_blocks(b, s, h, p, n)
     print(f"ssd_scan at serving shape, device time (CUDA graph): "
-          f"{ms * 1e3:.2f} us; plain sequential {plain_ms * 1e3:.2f} us; "
-          f"plain chunked {chunked_ms * 1e3:.2f} us; bound {bms * 1e3:.2f} "
-          f"us ({by})")
+          f"{ms * 1e3:.2f} us (grid: {grid['cb_pass']} C·Bᵀ blocks, then "
+          f"{grid['scan']} scan blocks of 128 threads, "
+          f"{grid['scan_smem_bytes']} B shared each, "
+          f"{grid['scan_blocks_per_sm']} per SM); plain sequential "
+          f"{plain_ms * 1e3:.2f} us; plain chunked {chunked_ms * 1e3:.2f} us")
+    print(f"ssd_scan bounds: tensor cores (the kernel's route) "
+          f"{bms * 1e3:.2f} us ({by}), {100 * bms / ms:.1f}% of it reached; "
+          f"f32 CUDA cores {cms * 1e3:.2f} us ({cby}), "
+          f"{100 * cms / ms:.1f}%")
     print(f"ssd_scan at serving shape, eager call incl. host dispatch: "
           f"{eager_ms * 1e3:.2f} us")
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:23",
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": None}
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "bound_cuda_cores_ms": cms, "grid_blocks": grid}
 
 
 # -- 6.-11. serving, failover and decode profile, per pool ---------------------
@@ -983,8 +1095,9 @@ def profile_device(fn, n):
 def mamba2_profile(card, what, fn, n):
     wall, busy, launches, kernels = profile_device(fn, n)
     scan = sum(e.self_device_time_total for e in kernels
-               if "ssd_scan_kernel" in e.key) / n / 1e3
+               if "ssd_scan" in e.key) / n / 1e3
     m = {"wall_ms": wall, "device_busy_ms": busy, "ssd_scan_kernel_ms": scan,
+         "ssd_scan_share_of_busy": scan / busy if busy else None,
          "kernel_launches": launches,
          "device_idle_share": 1 - busy / wall if busy else None}
     print(f"mamba2 {what} profile [{card}]: " + json.dumps(m))
@@ -1026,8 +1139,9 @@ def mamba2_phase(card: str) -> int:
             print(f"[mamba2 {s}] ssd_scan launches: {n} (one prefill); plain "
                   f"scans: {plain[0]}; paged attention: "
                   f"{PA.launches + PA8.launches}")
-            check(n == cfg.n_layers, f"{n} ssd_scan launches, not one per "
-                  f"layer ({cfg.n_layers})")
+            check(n == SSD.KERNELS_PER_CALL * cfg.n_layers,
+                  f"{n} ssd_scan launches, not {SSD.KERNELS_PER_CALL} per "
+                  f"layer ({cfg.n_layers} layers)")
             check(plain[0] == 0, "a plain scan ran on the card's path")
             launches += n
             runs.append(out)
@@ -1073,7 +1187,8 @@ def mamba2_phase(card: str) -> int:
                   f"{float(pc['ssm'].abs().max()):.2f})")
             check(math.isfinite(err) and err <= tol,
                   "kernel prefill differs from the plain chunked form")
-        check(SSD.launches == cfg.n_layers, "f32 prefill launch count")
+        check(SSD.launches == SSD.KERNELS_PER_CALL * cfg.n_layers,
+              "f32 prefill launch count")
         t = s - 1
         full = api.forward(cfg32, p32, toks)[:, t]
         for conv_dtype, tol in MAMBA_SPLIT_TOL.items():

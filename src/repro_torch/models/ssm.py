@@ -2,7 +2,7 @@
 chunked algorithm [arXiv:2405.21060].
 
 Forward and prefill run the chunked SSD scan: on the card through the
-hand-written CUDA kernel (``kernels/ssd_scan.py``, one launch per layer), on
+hand-written CUDA kernels (``kernels/ssd_scan.py``, one call per layer), on
 the CPU through the plain chunked form in torch ops. Decode runs the O(1)
 recurrent form. The recurrent state, not a KV cache, is this family's
 decode state. Params keep the reference's layer-stacked layout.

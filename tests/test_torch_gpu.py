@@ -248,38 +248,49 @@ def test_int8_decode_step_runs_through_kernel(card, smoke):
     assert (kg.cpu() != kp).any(dim=(1, 4)).sum() <= cfg.n_layers * 4
 
 
-def _ssd_case(b, s, h, p, n, bc_dtype, seed=0):
+def _ssd_case(b, s, h, p, n, bc_dtype, seed=0, row_pad=5):
     """The reference sweep's input scales; B and C are strided slices of one
-    (b, s, 2n + 5) tensor, as the model's are slices of the conv output."""
+    (b, s, 2n + row_pad) tensor, as the model's are slices of the conv
+    output. ``row_pad`` 5 starts no row on a 16-byte boundary (the wrapper
+    copies B and C to aligned rows); 8 keeps every row aligned (B and C
+    reach the kernels through TMA tensor maps as they stand, as the
+    model's do)."""
     rng = np.random.default_rng(seed)
     f = lambda scale, *shape: torch.from_numpy(  # noqa: E731
         (rng.standard_normal(shape) * scale).astype(np.float32)).cuda()
     xdt = f(0.5, b, s, h, p)
     a = -f(0.3, b, s, h).abs()
-    bc = f(0.3, b, s, 2 * n + 5).to(bc_dtype)
+    bc = f(0.3, b, s, 2 * n + row_pad).to(bc_dtype)
     h0 = f(1.0, b, h, p, n)
     return xdt, a, bc[..., :n], bc[..., n:2 * n], h0
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("with_h0", [False, True])
-@pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [
+SSD_SHAPES = [
     (2, 96, 16, 32, 32, 32),     # reduced mamba2-130m heads, 3 chunks
     (2, 512, 24, 64, 128, 256),  # full-width mamba2-130m heads, 2 chunks
     (2, 200, 24, 64, 128, 200),  # ragged: chunk = s = 200 (6 x 32 + 8)
-])
-def test_ssd_scan_kernel_matches_plain(card, shape, bc_dtype, with_h0):
-    """The kernel against the sequential recurrence on the same inputs (the
-    bf16 B and C widen exactly to f32 in both), within the reference's own
-    kernel-vs-oracle tolerance."""
+]
+SSD_EDGE_SHAPES = [
+    (2, 128, 4, 24, 64, 64),     # p not a multiple of the 16-row P tile
+    (2, 96, 3, 40, 128, 32),
+    (2, 33, 4, 64, 128, 33),     # around a 32-position sub-chunk
+    (2, 64, 4, 64, 128, 64),
+    (2, 65, 4, 64, 128, 65),
+    (2, 128, 8, 16, 128, 64),    # one P tile per head
+    (2, 96, 4, 64, 256, 32),     # N 129-256: 8 state n-tiles per warp
+    (2, 96, 4, 32, 200, 96),
+    (2, 64, 4, 18, 20, 32),      # P and N padded by the wrapper
+]
+
+
+def _check_ssd_scan(shape, bc_dtype, with_h0, row_pad):
     b, s, h, p, n, chunk = shape
-    xdt, a, B, C, h0 = _ssd_case(b, s, h, p, n, bc_dtype)
+    xdt, a, B, C, h0 = _ssd_case(b, s, h, p, n, bc_dtype, row_pad=row_pad)
     h0 = h0 if with_h0 else None
     before = SSD.launches
     y, hf = SSD.ssd_scan(xdt, a, B, C, chunk=chunk, h0=h0)
     torch.cuda.synchronize()
-    assert SSD.launches == before + 1
+    assert SSD.launches == before + SSD.KERNELS_PER_CALL
     ry, rh = ssd_scan_ref(xdt, a, B, C, h0)
     assert y.shape == (b, s, h, p) and hf.shape == (b, h, p, n)
     torch.testing.assert_close(y, ry, rtol=2e-4, atol=2e-4)
@@ -287,9 +298,36 @@ def test_ssd_scan_kernel_matches_plain(card, shape, bc_dtype, with_h0):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("row_pad", [5, 8])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SSD_SHAPES + SSD_EDGE_SHAPES)
+def test_ssd_scan_kernel_matches_plain(card, shape, bc_dtype, with_h0,
+                                       row_pad):
+    """The kernel against the sequential recurrence on the same inputs (the
+    bf16 B and C widen exactly to f32 in both), within the reference's own
+    kernel-vs-oracle tolerance: at the model's shapes and at the P-tile,
+    sub-chunk and state-width edges, with B and C rows unaligned (copied by
+    the wrapper) and aligned (through the TMA tensor maps as they are)."""
+    _check_ssd_scan(shape, bc_dtype, with_h0, row_pad=row_pad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("row_pad", [5, 8])
+@pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_is_deterministic(card, bc_dtype, row_pad):
+    """No atomics: two calls on the same inputs give the same bits."""
+    xdt, a, B, C, h0 = _ssd_case(2, 200, 24, 64, 128, bc_dtype,
+                                 row_pad=row_pad)
+    first = SSD.ssd_scan(xdt, a, B, C, chunk=200, h0=h0)
+    second = SSD.ssd_scan(xdt, a, B, C, chunk=200, h0=h0)
+    assert all(torch.equal(u, v) for u, v in zip(first, second))
+
+
+@pytest.mark.gpu
 def test_ssm_prefill_runs_through_kernel(card):
-    """A reduced float32 Mamba-2 prefill on the card launches the scan
-    kernel once per layer (40 tokens: padded to 64 at chunk 32) and matches
+    """A reduced float32 Mamba-2 prefill on the card launches the scan's two
+    kernels once per layer (40 tokens: padded to 64 at chunk 32) and matches
     the same prefill on the CPU (the plain chunked form)."""
     cfg = dataclasses.replace(get_config("mamba2-130m").reduced(),
                               dtype="float32")
@@ -306,7 +344,7 @@ def test_ssm_prefill_runs_through_kernel(card):
     before = SSD.launches
     gpu = ssm.prefill(cfg, to_card(params), toks.to(card))
     torch.cuda.synchronize()
-    assert SSD.launches == before + cfg.n_layers
+    assert SSD.launches == before + SSD.KERNELS_PER_CALL * cfg.n_layers
     torch.testing.assert_close(gpu[0].cpu(), cpu[0], rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(gpu[1]["ssm"].cpu(), cpu[1]["ssm"],
                                rtol=1e-4, atol=1e-4)

@@ -101,7 +101,7 @@ def test_chunk_contract_is_checked():
 
 
 @pytest.mark.parametrize("bad", ["x_dtype", "bc_dtype", "bc_mixed", "shape",
-                                 "h0", "device"])
+                                 "h0", "device", "state_dim"])
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad):
     """Checked before any build: no CUDA tensor, no library needed."""
     xdt, a, B, C = _torch(*_case(1, 32, 2, 8, 16))
@@ -117,7 +117,56 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad):
         a = a[:, :, :1]
     elif bad == "h0":
         h0 = torch.zeros(1, 2, 8, 8)
+    elif bad == "state_dim":            # over the register-held state's 256
+        B, C = (torch.zeros(1, 32, SSD.MAX_STATE + 8) for _ in range(2))
     before = SSD.launches
     with pytest.raises(err):
         SSD.ssd_scan(xdt, a, B, C, chunk=32, h0=h0)
     assert SSD.launches == before
+
+
+def _aligned16(t):
+    es = t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st * es % 16 == 0 for st in t.stride()[:-1]))
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p,n,row_pad", [
+    (16, 32, 8),     # already the kernels' form: nothing copied
+    (16, 32, 5),     # unaligned B/C rows: copied
+    (18, 20, 0),     # P and N padded with zeros
+    (6, 13, 3),
+])
+def test_kernel_operands_pad_and_align_without_changing_the_scan(
+        p, n, row_pad, bc_dtype, with_h0):
+    """The operands the wrapper hands the kernels: P a multiple of 4, N of
+    8, every x, B and C row on 16 bytes; the zero padding leaves y and the
+    live state as they were (the scan of the padded operands, cut back,
+    equals the scan of the given ones)."""
+    b, s, h = 2, 40, 3
+    rng = np.random.default_rng(1)
+    xdt, a, _, _ = _torch(*_case(b, s, h, p, n, seed=2))
+    bc = torch.from_numpy((rng.standard_normal((b, s, 2 * n + row_pad))
+                           * 0.3).astype(np.float32)).to(bc_dtype)
+    B, C = bc[..., :n], bc[..., n:2 * n]
+    h0 = (torch.from_numpy(rng.standard_normal((b, h, p, n))
+                           .astype(np.float32)) if with_h0 else None)
+    xk, ak, Bk, Ck, h0k = SSD.kernel_operands(xdt, a, B, C, h0)
+    pk, nk = -(-p // 4) * 4, -(-n // 8) * 8
+    assert xk.shape == (b, s, h, pk) and Bk.shape == Ck.shape == (b, s, nk)
+    assert all(_aligned16(t) for t in (xk, Bk, Ck))
+    assert xk.is_contiguous() and ak.is_contiguous()
+    if (pk, nk, row_pad) == (p, n, 8):
+        assert Bk.data_ptr() == B.data_ptr() and Ck.data_ptr() == C.data_ptr()
+    if with_h0:
+        assert h0k.shape == (b, h, pk, nk) and h0k.is_contiguous()
+        assert torch.equal(h0k[:, :, :p, :n], h0)
+    want_y, want_h = ssd_scan_ref(xdt, a, B, C, h0)
+    got_y, got_h = ssd_scan_ref(xk, ak, Bk, Ck, h0k)
+    torch.testing.assert_close(got_y[..., :p], want_y, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(got_h[:, :, :p, :n], want_h, rtol=1e-6,
+                               atol=1e-6)
+    assert not got_y[..., p:].any() and not got_h[:, :, p:].any()
+    assert not got_h[..., n:].any()

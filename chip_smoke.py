@@ -55,7 +55,33 @@ Phases (each raises, and the script exits non-zero, if its check fails):
                 built from the SAME weights with the int8 KV pool and
                 chunked prefill (chunks of 64); the kill may restart only
                 requests caught mid-prefill on the victim.
-  12. mamba2 generation — full-width mamba2-130m (bf16, random weights from
+  12. cold reference — a shared-prefix prompt set (a 128-token prefix, 8
+                pages, with distinct tails; every prompt 129-256 tokens, one
+                prefill bucket; one diverges inside page 7, one repeats
+                another) served on the same weights with the prefix cache
+                off, chunks of 64: one primer, then 8 requests concurrently
+                (the 8th a 120-token prefix of the prefix, bucket 128), then
+                4 drill prompts. Its streams are what phases 13-14 must
+                give; TTFTs for information.
+  13. prefix cache — the same traffic with prefix_cache=True: every stream
+                equal to cold; hits, skipped prompt compute, copy-on-write,
+                each shared page shipped once per ring target that lacked
+                it (copies == hosted pages, ship ratio <= 1); the
+                cross-bucket follower's stream and page difference reported,
+                not asserted; then a kill of the busier instance (if_busy)
+                with the batch in flight: streams equal cold, the survivor
+                still resolves the 8-page chain.
+  14. disaggregated — disaggregate=True with the prefix cache on: instance
+                0 prefills, instance 1 decodes; streams equal cold,
+                2,097,152 B per handoff block, one seat per request, no
+                decode step (so no attention kernel) on the prefill side;
+                then, with the service loop paused and the engine stepped
+                to the state each drill needs, the prefill instance killed
+                while a drill prompt streams (resumed on the decode side)
+                and, after it rejoins, the decode instance killed while it
+                decodes and handoffs stream to it (victims migrate, the
+                handoffs seat on the survivor): streams equal cold.
+  15. mamba2 generation — full-width mamba2-130m (bf16, random weights from
                 torch.Generator seed 0) through api.prefill and
                 api.decode_step: 8 prompts of 512 tokens (2 chunks), then 8
                 of 200 (one ragged chunk), 64 greedy tokens each, twice:
@@ -64,7 +90,7 @@ Phases (each raises, and the script exits non-zero, if its check fails):
                 kernel prefill against the plain chunked form, and forward
                 at t against prefill(:t) plus one decode step; prefill and
                 decode-step profiles.
-  13. summary — one JSON line of kernels, the card line, and the final
+  16. summary — one JSON line of kernels, the card line, and the final
                 {"ok": true, "device": ...} line.
 
 Each path's kernel launch counts are set to 0 just before the path and read
@@ -102,6 +128,7 @@ from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.kernels.ref import (paged_attention_int8_ref,  # noqa: E402
                                      paged_attention_ref, ssd_scan_ref)
 from repro_torch.models import api, ssm  # noqa: E402
+from repro_torch.models import paged_decode as PD  # noqa: E402
 from repro_torch.serving.engine import EngineConfig  # noqa: E402
 from repro_torch.serving.server import serve  # noqa: E402
 
@@ -854,6 +881,51 @@ def block_bytes(cfg, quantized: bool) -> int:
     return rows * (cfg.head_dim + 2) if quantized else rows * cfg.head_dim * 2
 
 
+def counted(label, what, fn, kernel, idle):
+    """Run ``fn`` with both attention kernels' launch counts set to 0 just
+    before and read just after; check the run went through ``kernel`` (a
+    positive multiple of 32 launches) and never through ``idle``. Returns
+    (fn's result, ``kernel``'s launches)."""
+    kernel.launches = idle.launches = 0
+    out = fn()
+    n, other = kernel.launches, idle.launches
+    print(f"[{label}] {kname(kernel)} launches in {what}: {n}; "
+          f"{kname(idle)}: {other}")
+    check(n > 0 and n % LAYERS_PER_STEP == 0,
+          f"{what} launch count {n} is not a positive multiple of "
+          f"{LAYERS_PER_STEP}")
+    check(other == 0, f"{what} launched {kname(idle)} {other} times")
+    return out, n
+
+
+def http_kill_drill(client, prompts, max_tokens, label):
+    """POST every prompt concurrently; once each holds a slot (none is left
+    to be admitted onto the victim) and some instance decodes, kill the
+    instance decoding most through /v1/admin/fault (``if_busy``). Returns
+    (responses, victim, the victim's mid-prefill count just before)."""
+    threads, out, errs = client.completions(prompts, max_tokens)
+    deadline = time.time() + 300
+    while True:
+        check(time.time() < deadline, "no instance started decoding")
+        h = client.health()
+        inst = h["instances"]
+        admitted = sum(i["active"] for i in inst)
+        decoding = [i["active"] - i["prefilling"] for i in inst]
+        if admitted == len(prompts) and max(decoding) > 0:
+            break
+        time.sleep(0.002)
+    victim = int(np.argmax(decoding))
+    prefilling = inst[victim]["prefilling"]
+    fault = client.post("/v1/admin/fault",
+                        {"granularity": "instance", "instance_id": victim,
+                         "if_busy": True})
+    check(fault["applied"], "fault was not applied")
+    print(f"[{label}] killed instance {victim} ({decoding[victim]} "
+          f"decoding, {prefilling} mid-prefill just before the fault); "
+          f"seamlessly resumed {fault['seamlessly_resumed']}")
+    return join(threads, out, errs), victim, prefilling
+
+
 def run_path(card, cfg, ecfg, kernel, idle, label, prompts, params=None):
     """One serving path end to end: start the HTTP service (on ``params``
     when given), warm it up, then serving, failover and decode profile.
@@ -871,23 +943,6 @@ def run_path(card, cfg, ecfg, kernel, idle, label, prompts, params=None):
     server = threading.Thread(target=httpd.serve_forever, daemon=True)
     server.start()
     launches = 0
-
-    def counted(what, fn):
-        """Run ``fn`` with both kernels' launch counts set to 0 just before
-        and read just after; check the path went through ``kernel``."""
-        nonlocal launches
-        kernel.launches = idle.launches = 0
-        out = fn()
-        n, other = kernel.launches, idle.launches
-        launches += n
-        print(f"[{label}] {kname(kernel)} launches in {what}: {n}; "
-              f"{kname(idle)}: {other}")
-        check(n > 0 and n % LAYERS_PER_STEP == 0,
-              f"{what} launch count {n} is not a positive multiple of "
-              f"{LAYERS_PER_STEP}")
-        check(other == 0, f"{what} launched {kname(idle)} {other} times")
-        return out
-
     try:
         client = Client(httpd.server_address[1])
         # warm-up: cuBLAS handles and the first allocations
@@ -898,8 +953,10 @@ def run_path(card, cfg, ecfg, kernel, idle, label, prompts, params=None):
         phase(f"serving ({label})")
         n_samples = len(svc.engine.step_samples)
         t0 = time.perf_counter()
-        resps = counted("serving",
-                        lambda: join(*client.completions(prompts, 32)))
+        resps, n = counted(label, "serving",
+                           lambda: join(*client.completions(prompts, 32)),
+                           kernel, idle)
+        launches += n
         wall = time.perf_counter() - t0
         steps = [w for _, w in svc.engine.step_samples[n_samples:]]
         streams = [r["choices"][0]["token_ids"] for r in resps]
@@ -922,33 +979,11 @@ def run_path(card, cfg, ecfg, kernel, idle, label, prompts, params=None):
         print(f"serving [{label}] [{card}]: " + json.dumps(m))
 
         phase(f"failover ({label})")
-
-        def drill():
-            threads, out, errs = client.completions(prompts, 32)
-            deadline = time.time() + 300
-            while True:
-                check(time.time() < deadline, "no instance started decoding")
-                h = client.health()
-                inst = h["instances"]
-                admitted = sum(i["active"] for i in inst)
-                decoding = [i["active"] - i["prefilling"] for i in inst]
-                # every prompt holds a slot (none is left to be admitted
-                # onto the victim after this read) and one instance decodes
-                if admitted == len(prompts) and max(decoding) > 0:
-                    break
-                time.sleep(0.002)
-            victim = int(np.argmax(decoding))
-            prefilling = inst[victim]["prefilling"]
-            fault = client.post("/v1/admin/fault",
-                                {"granularity": "instance",
-                                 "instance_id": victim, "if_busy": True})
-            check(fault["applied"], "fault was not applied")
-            print(f"[{label}] killed instance {victim} ({decoding[victim]} "
-                  f"decoding, {prefilling} mid-prefill just before the "
-                  f"fault); seamlessly resumed {fault['seamlessly_resumed']}")
-            return join(threads, out, errs), victim, prefilling
-
-        resps2, victim, prefilling = counted("failover", drill)
+        (resps2, victim, prefilling), n = counted(
+            label, "failover",
+            lambda: http_kill_drill(client, prompts, 32, label),
+            kernel, idle)
+        launches += n
         migrations = [r["kevlarflow"]["migrations"] for r in resps2]
         retries = [r["kevlarflow"]["retries"] for r in resps2]
         print(f"[{label}] migrations per request: {migrations}; retries "
@@ -988,9 +1023,408 @@ def run_path(card, cfg, ecfg, kernel, idle, label, prompts, params=None):
     return launches, svc.engine.params
 
 
+# -- 12.-14. cold reference, prefix cache, disaggregation -----------------------
+
+SHARED_PAGES = 8        # the shared system prompt: 8 pages (128 tokens)
+NEW_TOKENS = 32
+
+
+@dataclasses.dataclass
+class SharedPrefixSet:
+    """The shared-prefix prompt set (lengths for page 16; a config with
+    another page size scales them): a prefix of 8 pages with distinct
+    tails, every prompt 129-256 tokens long — one prefill bucket, 256.
+    ``batch`` holds five tails (20-128 tokens), one prompt that diverges
+    inside page 7 (at token 120: the copy-on-write case) and a repeat of
+    the second prompt. ``xbucket`` is the prefix's first 120 tokens alone:
+    bucket 128, held against cold serving for information only. ``drill``
+    holds four more prompts of the prefix with long new tails (218-256
+    tokens): with the prefix cached they still have two chunks to run, the
+    window a prefill-side kill needs."""
+    shared: list
+    primer: list
+    batch: list
+    xbucket: list
+    drill: list
+
+
+def shared_prefix_set(cfg) -> SharedPrefixSet:
+    page = cfg.page_size
+    rng = np.random.default_rng(2)
+
+    def rnd(n):
+        return rng.integers(1, cfg.vocab_size, n * page // 16).tolist()
+    shared = rnd(SHARED_PAGES * 16)
+    cut = SHARED_PAGES * page - page // 2
+    batch = [shared + rnd(n) for n in (20, 45, 70, 100, 128)]
+    batch.append(shared[:cut] + rnd(90))
+    batch.append(list(batch[1]))
+    drill = [shared + rnd(n) for n in (90, 110, 128, 100)]
+    return SharedPrefixSet(shared, shared + rnd(40), batch, shared[:cut],
+                           drill)
+
+
+def prefix_ecfg(cfg, **kw) -> EngineConfig:
+    """8 slots, chunks of 4 pages (64 tokens), room for 24 pages."""
+    return EngineConfig(max_slots=8, max_seq=24 * cfg.page_size,
+                        prefill_chunk=4 * cfg.page_size, **kw)
+
+
+@contextlib.contextmanager
+def http_service(cfg, ecfg, params):
+    """The port's HTTP service on the given weights, 2 instances, stopped
+    (server thread and engine loop) on exit."""
+    svc, httpd = serve(cfg, ecfg, n_instances=2, port=0, device="cuda",
+                       params=params)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield svc, Client(httpd.server_address[1])
+    finally:
+        httpd.shutdown()
+        svc.shutdown()
+        thread.join(timeout=30)
+
+
+def tokens_of(resps):
+    return [r["choices"][0]["token_ids"] for r in resps]
+
+
+def primer_then_batch(client, primer, batch):
+    """The primer alone, then the batch concurrently. Returns (the primer's
+    response, the batch's responses, the batch's wall seconds)."""
+    first = client.post("/v1/completions",
+                        {"prompt_tokens": primer, "max_tokens": NEW_TOKENS})
+    t0 = time.perf_counter()
+    resps = join(*client.completions(batch, NEW_TOKENS))
+    return first, resps, time.perf_counter() - t0
+
+
+def ttft_line(label, card, resps, wall):
+    m = serving_metrics(resps, wall)
+    print(f"serving [{label}] [{card}] (for information): TTFT median "
+          f"{m['ttft_s_median']:.4f} s, max {m['ttft_s_max']:.4f} s; "
+          f"{m['tokens_per_s']:.1f} tokens/s over {m['n_requests']} "
+          "concurrent requests")
+    return m
+
+
+def cold_reference(card, cfg, params, ps):
+    """The prompt set served with the prefix cache off (chunked prefill,
+    chunks of 64): the streams every later path must reproduce, and the
+    cold TTFTs of the primer-then-batch traffic; then the drill prompts
+    concurrently. Returns (stream per prompt, metrics, launches)."""
+    label = "cold reference"
+
+    def run():
+        first, resps, wall = primer_then_batch(client, ps.primer,
+                                               ps.batch + [ps.xbucket])
+        return first, resps, wall, join(*client.completions(ps.drill,
+                                                            NEW_TOKENS))
+    with http_service(cfg, prefix_ecfg(cfg), params) as (_, client):
+        (first, resps, wall, drill), n = counted(label, "serving", run, PA,
+                                                 PA8)
+    prompts = [ps.primer] + ps.batch + [ps.xbucket] + ps.drill
+    streams = tokens_of([first] + resps + drill)
+    check(all(len(t) == NEW_TOKENS for t in streams), "cold stream length")
+    check(streams[2] == streams[len(ps.batch)], "greedy determinism: same "
+          "prompt, different tokens")
+    return ({tuple(p): t for p, t in zip(prompts, streams)},
+            ttft_line(label, card, resps, wall), n)
+
+
+def same_as_cold(cold, prompts, resps) -> bool:
+    return tokens_of(resps) == [cold[tuple(p)] for p in prompts]
+
+
+def bucket_page_difference(cfg, params, ps):
+    """Largest |difference| between the K/V rows of the cross-bucket
+    follower's whole pages computed in its own bucket (128) and in the
+    prompt set's (256), through the engine's chunked prefill (chunks of 64)
+    on the card — the bytes a cached page would carry across buckets."""
+    page, chunk = cfg.page_size, 4 * cfg.page_size
+    n = len(ps.xbucket)
+    rows = (n // page) * page
+    device = params["embed"]["tok"].device
+    out = []
+    for bucket in (8 * page, 16 * page):
+        toks = torch.zeros((1, bucket), dtype=torch.int32, device=device)
+        toks[0, :n] = torch.as_tensor(ps.xbucket, device=device)
+        kb, vb = PD.init_chunk_buffers(cfg, bucket, device=device)
+        for c0 in range(0, rows, chunk):
+            PD.prefill_chunk(cfg, params, toks[:, c0:c0 + chunk], c0,
+                             min(chunk, n - c0), kb, vb)
+        out.append((kb[:, :rows].to(PD.kv_dtype(cfg)).float(),
+                    vb[:, :rows].to(PD.kv_dtype(cfg)).float()))
+    return max(float((a - b).abs().max()) for a, b in zip(*out))
+
+
+def prefix_path(card, cfg, params, ps, cold):
+    """Path "prefix cache": the primer, then the batch concurrently over
+    HTTP with the prefix cache on; every stream equal to its cold stream;
+    hits, skipped compute, copy-on-write and shared pages shipped once per
+    ring target; then an instance kill (the busier instance) with the
+    batch in flight. Returns (metrics, launches)."""
+    label = "prefix cache"
+    ecfg = prefix_ecfg(cfg, prefix_cache=True)
+    with http_service(cfg, ecfg, params) as (svc, client):
+        def run():
+            first, resps, wall = primer_then_batch(
+                client, ps.primer, ps.batch + [ps.xbucket])
+            check(same_as_cold(cold, [ps.primer] + ps.batch,
+                               [first] + resps[:-1]),
+                  "prefix-cached streams differ from cold serving")
+            h = client.health()
+            st, repl = h["prefix"], h["replication"]
+            print(f"[{label}] prefix stats: " + json.dumps(st))
+            check(st["enabled"] and st["prefix_cached_tokens"] > 0,
+                  "no prefix-cache hits")
+            check(st["prefill_compute_tokens"] < st["prefill_total_tokens"],
+                  "the prefix cache skipped no prompt compute")
+            check(st["cow_copies"] >= 1, "no copy-on-write")
+            # each shared page crossed the wire once per ring target that
+            # lacked it: every copy made one hosted page there. A hosting
+            # on a target that already held the page from its own traffic
+            # ships nothing, so with both instances serving the prefix the
+            # ratio copies / hostings is below 1
+            check(st["shared_replica_copies"] == st["hosted_pages"] > 0
+                  and st["shared_page_ship_ratio"] <= 1.0,
+                  "a shared page shipped more than once to a target")
+            check(repl["bytes_total"] == repl["blocks_total"]
+                  * block_bytes(cfg, False), "replicated bytes per block")
+            same = same_as_cold(cold, [ps.xbucket], resps[-1:])
+            diff = bucket_page_difference(cfg, params, ps)
+            print(f"[{label}] cross-bucket follower ({len(ps.xbucket)} "
+                  f"tokens, bucket {8 * cfg.page_size}, its cached pages "
+                  f"from bucket {16 * cfg.page_size}) (for information): "
+                  f"stream equal to cold serving: {same}; largest K/V "
+                  f"difference of its whole pages between the two buckets "
+                  f"{diff:.3e}")
+            m = ttft_line(label, card, resps, wall)
+            m.update(hit_rate=st["hit_rate"],
+                     compute_saved_tokens=st["prefill_total_tokens"]
+                     - st["prefill_compute_tokens"],
+                     ship_ratio=st["shared_page_ship_ratio"],
+                     xbucket_stream_equal=same, xbucket_page_diff=diff)
+
+            phase(f"failover ({label})")
+            resps2, victim, prefilling = http_kill_drill(
+                client, ps.batch, NEW_TOKENS, label)
+            retries = sum(r["kevlarflow"]["retries"] for r in resps2)
+            check(same_as_cold(cold, ps.batch, resps2),
+                  "resumed streams differ from cold serving")
+            check(retries <= prefilling, f"{retries} restarts, but only "
+                  f"{prefilling} requests were mid-prefill on the victim")
+            with svc._lock:
+                full, _ = svc.engine.instances[1 - victim].pool.match_prefix(
+                    ps.shared, peek=True)
+            check(len(full) == SHARED_PAGES,
+                  f"the survivor resolves {len(full)} of the prefix's "
+                  f"{SHARED_PAGES} pages")
+            print(f"failover [{label}] [{card}]: killed instance {victim}; "
+                  f"all {len(resps2)} streams byte-identical to cold "
+                  f"serving ({retries} restarted); the survivor's index "
+                  f"resolves the {SHARED_PAGES}-page chain")
+            return m
+        m, n = counted(label, "serving and failover", run, PA, PA8)
+    return m, n
+
+
+def decode_launches_by_instance(engine) -> dict:
+    """Wrap each instance's decode program: per instance, how many decode
+    steps ran and how many attention kernels they launched."""
+    counts = {}
+    for inst in engine.instances:
+        c = counts[inst.instance_id] = {"decode_steps": 0, "launches": 0}
+
+        def decode(*args, fn=inst._decode, c=c):
+            before = PA.launches + PA8.launches
+            out = fn(*args)
+            c["decode_steps"] += 1
+            c["launches"] += PA.launches + PA8.launches - before
+            return out
+        inst._decode = decode
+    return counts
+
+
+@contextlib.contextmanager
+def loop_paused(svc):
+    """The service loop takes no engine step while the block runs (it sees
+    no pending work), so the caller steps the engine by hand; HTTP requests
+    are still accepted."""
+    eng = svc.engine
+    with svc._lock:
+        eng.has_pending = eng.recovery_pending = lambda: False
+    try:
+        yield
+    finally:
+        with svc._lock:
+            del eng.has_pending, eng.recovery_pending
+
+
+def kill_when(svc, start, n_submitted, cond, victim, label):
+    """With the service loop paused: ``start()`` the requests, wait until
+    the service holds ``n_submitted``, step the engine by hand until
+    ``cond(engine)`` holds and kill ``victim`` right there — the state the
+    drill needs, whatever the timing. Returns (start()'s result, the
+    resumed rids)."""
+    deadline = time.time() + 300
+    with loop_paused(svc):
+        started = start()
+        while True:
+            with svc._lock:
+                if svc._next_rid >= n_submitted:
+                    break
+            check(time.time() < deadline, f"[{label}] requests not submitted")
+            time.sleep(0.001)
+        with svc._lock:
+            eng = svc.engine
+            while not cond(eng):
+                check(type(eng).has_pending(eng) and time.time() < deadline,
+                      f"[{label}] the kill condition never held")
+                eng.step()
+            resumed = eng.fail_instance(victim)
+    return started, resumed
+
+
+def mid_stream(eng) -> bool:
+    """A prompt still prefilling on instance 0 has pages hosted on its
+    decode target."""
+    return any(not rec.get("final") and rec["dst"] is not None
+               and eng.instances[rec["dst"]].pool.replica_table(0, rid)
+               for rid, rec in eng._handoffs.items() if rec["src"] == 0)
+
+
+def disagg_path(card, cfg, params, ps, cold):
+    """Path "disaggregated": instance 0 prefills, instance 1 decodes (the
+    prefix cache on too); every stream equal to its cold stream, whole
+    bf16 blocks on the handoff stream, one seat per request, no attention
+    kernel on the prefill side; then the prefill instance killed mid-stream
+    and, after it rejoins, the decode instance killed while it decodes and
+    handoffs stream to it. Returns (metrics, launches)."""
+    label = "disaggregated"
+    ecfg = prefix_ecfg(cfg, prefix_cache=True, disaggregate=True)
+    with http_service(cfg, ecfg, params) as (svc, client):
+        eng = svc.engine
+
+        def run():
+            by_inst = decode_launches_by_instance(eng)
+            first, resps, wall = primer_then_batch(client, ps.primer,
+                                                   ps.batch)
+            check(same_as_cold(cold, [ps.primer] + ps.batch,
+                               [first] + resps),
+                  "disaggregated streams differ from cold serving")
+            h = client.health()
+            d = h["disagg"]
+            print(f"[{label}] disagg stats: " + json.dumps(d))
+            print(f"[{label}] decode steps and attention launches per "
+                  f"instance: {json.dumps(by_inst)}")
+            check(d["roles"] == {"0": "prefill", "1": "decode"}, "roles")
+            per_block = d["handoff_bytes_total"] / max(
+                d["handoff_blocks_total"], 1)
+            check(d["handoff_blocks_total"] > 0
+                  and per_block == block_bytes(cfg, False),
+                  f"handoff bytes per block {per_block}")
+            check(d["handoffs_seated"] == 1 + len(ps.batch),
+                  f"{d['handoffs_seated']} handoffs seated")
+            check(by_inst[0] == {"decode_steps": 0, "launches": 0}
+                  and by_inst[1]["launches"] > 0,
+                  "the prefill-role instance decoded")
+            m = ttft_line(label, card, resps, wall)
+            m.update(handoff_bytes_per_block=per_block,
+                     handoff_blocks=d["handoff_blocks_total"],
+                     zero_copy_pages=d["handoff_shared_zero_copy_pages"])
+
+            phase(f"failover, prefill side ({label})")
+            with svc._lock:
+                base = svc._next_rid
+            threads, _ = kill_when(
+                svc, lambda: client.completions(ps.drill, NEW_TOKENS),
+                base + len(ps.drill), mid_stream, 0, label)
+            resps2 = join(*threads)
+            h = client.health()
+            event = h["failure_events"][-1]
+            print(f"[{label}] prefill instance killed mid-stream: "
+                  f"{json.dumps(event)}; streams resumed "
+                  f"{h['disagg']['handoff_streams_resumed']}")
+            check(same_as_cold(cold, ps.drill, resps2),
+                  "streams after the prefill kill differ from cold serving")
+            check(h["disagg"]["handoff_streams_resumed"] >= 1
+                  or event["resumed"] >= 1,
+                  "no handoff resumed on the decode side")
+            client.post("/v1/admin/recover",
+                        {"granularity": "instance", "instance_id": 0})
+
+            phase(f"failover, decode side ({label})")
+            wave_a, wave_b = ps.batch[:3], ps.batch[3:]
+            with svc._lock:
+                base = svc._next_rid
+            threads_a = client.completions(wave_a, NEW_TOKENS)
+            deadline = time.time() + 300
+            while True:        # wave A seated on 1 and replicated to 0
+                with svc._lock:
+                    live = [r for r in eng.instances[1].requests.values()
+                            if r.rid >= base and r.rid in eng.replica_meta]
+                if len(live) == len(wave_a):
+                    break
+                check(time.time() < deadline, "wave A never decoded")
+                time.sleep(0.002)
+            threads_b, resumed = kill_when(
+                svc, lambda: client.completions(wave_b, NEW_TOKENS),
+                base + len(ps.batch),
+                lambda e: any(rec["dst"] == 1
+                              for rec in e._handoffs.values()), 1, label)
+            resps3 = join(*threads_a) + join(*threads_b)
+            h = client.health()
+            print(f"[{label}] decode instance killed with handoffs in "
+                  f"flight: {json.dumps(h['failure_events'][-1])}")
+            check(same_as_cold(cold, ps.batch, resps3),
+                  "streams after the decode kill differ from cold serving")
+            check(len(resumed) >= 1 and max(
+                r["kevlarflow"]["migrations"] for r in resps3) >= 1,
+                "no victim migrated")
+            check(h["disagg"]["handoffs_in_flight"] == 0,
+                  "handoffs left in flight")
+            print(f"failover [{label}] [{card}]: both kills byte-identical "
+                  "to cold serving")
+            return m
+        m, n = counted(label, "serving and both failovers", run, PA, PA8)
+    return m, n
+
+
+def shared_prefix_phases(card, cfg, params) -> int:
+    """The cold reference, then the two paths on the same weights. Returns
+    the bf16 attention kernel's launches on the three."""
+    ps = shared_prefix_set(cfg)
+    lens = [len(p) for p in [ps.primer] + ps.batch]
+    lens += [len(p) for p in ps.drill]
+    print(f"shared-prefix prompt set: prefix {len(ps.shared)} tokens "
+          f"({SHARED_PAGES} pages); primer, batch and drill lengths {lens}; "
+          f"cross-bucket follower {len(ps.xbucket)}")
+    check(all(8 * cfg.page_size < n <= 16 * cfg.page_size for n in lens),
+          "every prompt in one prefill bucket")
+    phase("serving (cold reference)")
+    cold, m_cold, n_cold = cold_reference(card, cfg, params, ps)
+    phase("serving (prefix cache)")
+    m_pre, n_pre = prefix_path(card, cfg, params, ps, cold)
+    phase("serving (disaggregated)")
+    m_dis, n_dis = disagg_path(card, cfg, params, ps, cold)
+    print(f"TTFT cold / prefix-cached / disaggregated [{card}] (for "
+          "information): " + json.dumps(
+              {k: {"ttft_s_median": m["ttft_s_median"],
+                   "ttft_s_max": m["ttft_s_max"],
+                   "tokens_per_s": m["tokens_per_s"]}
+               for k, m in (("cold", m_cold), ("prefix_cache", m_pre),
+                            ("disaggregated", m_dis))}))
+    print(f"prefix cache [{card}]: " + json.dumps(m_pre))
+    print(f"disaggregated [{card}]: " + json.dumps(m_dis))
+    return n_cold + n_pre + n_dis
+
+
 def serving_phases(card: str) -> dict:
-    """The bf16 path, then the int8 + chunked-prefill path on the same
-    weights. Returns each kernel's launches on its path."""
+    """The bf16 path, the int8 + chunked-prefill path, then the prefix-cache
+    and disaggregated paths, all on the same weights. Returns each
+    kernel's launches on its paths."""
     cfg = get_config("llama3-8b")
     print(f"model {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"vocab {cfg.vocab_size}, {cfg.n_params() / 1e9:.2f} B params, "
@@ -1008,10 +1442,11 @@ def serving_phases(card: str) -> dict:
         card, cfg, EngineConfig(max_slots=8, max_seq=256, kv_quant=True,
                                 prefill_chunk=64),
         PA8, PA, "int8 + chunked prefill", prompts, params=params)
+    bf16 += shared_prefix_phases(card, cfg, params)
     return {"paged_attention": bf16, "paged_attention_int8": int8}
 
 
-# -- 12. mamba2 generation -------------------------------------------------------
+# -- 15. mamba2 generation -------------------------------------------------------
 
 @contextlib.contextmanager
 def plain_scan_calls():

@@ -14,7 +14,9 @@ Entry points:
     the last real token's logits and the first true_len KV rows are exact.
   * ``prefill_chunk`` — one chunk of a chunked prefill over KV carry
     buffers from ``init_chunk_buffers`` (updated IN PLACE); the chunks
-    together give the rows and logits ``prefill_bucketed`` gives.
+    together give the rows and logits ``prefill_bucketed`` gives;
+    ``seed_chunk_buffers`` fills the leading rows from pool pages so a
+    prefill can resume past cached or streamed pages.
   * ``decode_step_paged`` — one continuous-batching decode step: write each
     request's new KV into its current page IN PLACE (the pool tensors are
     updated, not returned), attend over the paged pool, sample on device.
@@ -120,6 +122,26 @@ def init_chunk_buffers(cfg, bucket: int, device="cuda"):
     dt = L.torch_dtype(cfg.dtype)
     return (torch.zeros(shape, dtype=dt, device=device),
             torch.zeros(shape, dtype=dt, device=device))
+
+
+def seed_chunk_buffers(k_buf, v_buf, k_pages, v_pages, slots):
+    """Seed the leading rows of chunked-prefill carry buffers from pool
+    pages, IN PLACE (a prefix-cache or streamed-handoff resume): ``slots``
+    are the page slots covering buffer rows [0, len(slots)*page). The pool
+    pages (L, K, n, page, D) are gathered and written as buffer rows
+    (L, n*page, K, D) in the buffer's dtype — bitwise-exact only when the
+    pool stores KV in the buffers' activation dtype (the engine's
+    ``_can_seed_chunks`` gate). Rows past the seeded run stay as they were
+    and are recomputed by the resumed chunks before any query attends
+    them."""
+    if not slots:
+        return k_buf, v_buf
+    idx = torch.as_tensor(slots, dtype=torch.long, device=k_pages.device)
+    for buf, pages in ((k_buf, k_pages), (v_buf, v_pages)):
+        g = pages.index_select(2, idx)                 # (L, K, n, page, D)
+        l, k, n, p, d = g.shape
+        buf[:, :n * p] = g.permute(0, 2, 3, 1, 4).reshape(l, n * p, k, d)
+    return k_buf, v_buf
 
 
 def prefill_chunk(cfg, params, tokens, start: int, take: int, k_buf, v_buf,

@@ -18,7 +18,14 @@ mechanisms appear here for real:
     a decode step ships at most ONE block per active request;
   * failover — ``fail_instance`` promotes the hosted replica blocks in
     place (``promote_replica``) and the request continues byte-identically
-    on the target.
+    on the target;
+  * prefix caching (``prefix_cache``) — fully-covered prompt pages are
+    interned by chain hash and attached by reference on admission; writes
+    that land on a shared page copy-on-write first, and a shared page
+    ships at most once per ring target;
+  * disaggregation (``disaggregate``) — prefill-role instances stream each
+    finished prompt page over the same transport to a decode-role peer,
+    which seats the request when the final chunk's pages land.
 
 Dynamic traffic rerouting (paper Sec 3.2 mechanism #2) is the LB layer of
 ``RealEngine``: every instance owns a waiting queue, new arrivals route to
@@ -29,10 +36,9 @@ replicas. ``EngineConfig.recovery`` picks ``kevlarflow`` (warm-spare
 rejoin) or ``standard`` (every victim restarts and the group stalls for
 ``reload_penalty`` clock units).
 
-This port serves the dense family with colocated roles, monolithic or
-chunked prefill, and a bf16 or int8 KV pool. The knobs of later slices —
-prefix caching, disaggregation and shard-granularity faults — raise until
-then.
+This port serves the dense family with monolithic or chunked prefill, a
+bf16 or int8 KV pool, prefix caching and prefill/decode disaggregation.
+Shard-granularity faults are a later slice.
 """
 from __future__ import annotations
 
@@ -43,6 +49,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.models import layers as L
 from repro_torch.models import paged_decode as PD
 from repro_torch.models import transformer
 from repro_torch.serving.api_types import FaultSpec
@@ -72,14 +79,29 @@ class EngineConfig:
     # mid-prefill slot per engine step, interleaved with the decode batch.
     # 0 = monolithic prefill inline at admission
     prefill_chunk: int = 0
-    prefix_cache: bool = False   # not ported yet: must stay False
+    # prefix caching: fully-covered prompt pages are content-hashed (token
+    # ids + arch + kv dtype chain key), interned in the pool's prefix index
+    # and attached by reference on admission — the longest cached
+    # page-aligned prefix costs no fresh pages, no prefill compute (chunked
+    # prefill resumes past it when the page bytes are the activation
+    # dtype), and no replication bytes beyond one ship per (ring target,
+    # page). Writes landing on a shared page copy-on-write first.
+    prefix_cache: bool = False
     # async double-buffered replication: _replicate STAGES the step's dirty
     # block ids and the copies ship at the top of the NEXT step.
     # flush_replication is the barrier — fail_instance/rejoin_instance flush
     # before touching replicas, so failover stays byte-identical. False =
     # ship in-step and block until the replica is durable.
     repl_async: bool = True
-    disaggregate: bool = False   # not ported yet: must stay False
+    # prefill/decode disaggregation: the first max(1, n//2) instances run
+    # chunked prefill ONLY and stream each fully-covered prompt page (the
+    # chain key for prefix-cached pages, which the decode side interns
+    # rather than copies) to a decode-role instance over the transport
+    # replication uses; the decode instance seats the request when the
+    # final chunk's pages land. Byte-identical to colocated serving.
+    # Requires prefill_chunk > 0 and >= 2 instances. Roles are soft: with
+    # every prefill-role instance dead the survivors serve colocated.
+    disaggregate: bool = False
     # replication placement policy (controlplane.PlacementPolicy)
     placement: str = "successor"
     # recovery policy applied by fail_instance (see module docstring)
@@ -92,13 +114,10 @@ class EngineConfig:
     n_shards: int = 4
 
 
-def _check_ported(cfg, ecfg: EngineConfig):
+def _check_ported(cfg):
     if cfg.arch_type not in PD.PAGED_FAMILIES:
         raise NotImplementedError(
             f"the port serves {PD.PAGED_FAMILIES}, not {cfg.arch_type!r}")
-    for name in ("prefix_cache", "disaggregate"):
-        if getattr(ecfg, name):
-            raise NotImplementedError(f"EngineConfig.{name} is not ported yet")
 
 
 class FamilyExecutor:
@@ -109,7 +128,7 @@ class FamilyExecutor:
     place."""
 
     def __init__(self, cfg, ecfg: EngineConfig):
-        _check_ported(cfg, ecfg)
+        _check_ported(cfg)
         temp = ecfg.temperature
 
         def decode(p, tok, k_pages, v_pages, ks, vs, bt, pos, base,
@@ -136,7 +155,7 @@ class RealInstance:
     def __init__(self, cfg, params, ecfg: EngineConfig, instance_id: int = 0,
                  executor: Optional[FamilyExecutor] = None,
                  clock: Optional[Callable[[], float]] = None,
-                 device="cuda"):
+                 device="cuda", role: str = "both"):
         self.cfg = cfg
         self.family = cfg.arch_type
         self.params = params          # node-resident weights (shared ref!)
@@ -144,7 +163,15 @@ class RealInstance:
         self.instance_id = instance_id
         self.device = torch.device(device)
         self.alive = True
-        self.role = "both"            # colocated serving
+        # disaggregation role: "prefill" instances run chunked prefill only
+        # and hand finished prompts to the engine's handoff stream instead
+        # of seating them; "decode" instances receive streamed pages and
+        # decode; "both" is colocated serving
+        self.role = role
+        self.handoff_mode = role == "prefill"
+        # prefill jobs whose final chunk just ran under handoff_mode: the
+        # engine drains these into its handoff records each step
+        self.ready_handoffs: List[dict] = []
         self.n_shards = max(1, ecfg.n_shards)
         B, S = ecfg.max_slots, ecfg.max_seq
         page = cfg.page_size
@@ -155,7 +182,12 @@ class RealInstance:
             n_blocks, page, n_layers=len(PD.kv_layer_indices(cfg)),
             n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim, real=True,
             dtype=PD.kv_dtype(cfg), window=self.window, device=self.device,
-            quantized=ecfg.kv_quant)
+            quantized=ecfg.kv_quant, prefix_cache=ecfg.prefix_cache,
+            # chain-hash identity: a page is only reusable under the same
+            # model AND the same on-page byte representation
+            arch_key=f"{cfg.name}|{cfg.arch_type}"
+                     f"|{str(PD.kv_dtype(cfg)).removeprefix('torch.')}"
+                     f"|q{int(ecfg.kv_quant)}")
         # idle batch slots write/attend into one scratch block, never freed
         self.scratch = self.pool.allocate(SCRATCH_RID, 1)[0].slot
         self.block_table = np.full((B, self.pages_per_seq), self.scratch,
@@ -180,7 +212,20 @@ class RealInstance:
         # slot -> chunked-prefill job (request, pages, carry buffers,
         # progress); empty under monolithic prefill
         self.prefill_jobs: Dict[int, dict] = {}
+        # prefix-cache accounting (prefix_stats aggregates across instances)
         self.prefill_total_tokens = 0
+        self.prefill_compute_tokens = 0
+        self.prefix_cached_tokens = 0
+        # chunk buffers can be seeded from pool pages only when the page
+        # bytes ARE the activation dtype (int8 pages are lossy) — shared by
+        # the prefix cache's compute skip and the streamed-handoff resume.
+        # Ineligible configs still share pages: they recompute the whole
+        # prompt but skip the writes to shared pages (deterministic
+        # recompute reproduces the interned bytes)
+        self._can_seed_chunks = (
+            self.chunk > 0 and not ecfg.kv_quant
+            and L.torch_dtype(cfg.dtype) == PD.kv_dtype(cfg))
+        self.prefix_skip_compute = ecfg.prefix_cache and self._can_seed_chunks
 
     def _stamp(self, now: float) -> float:
         """Timestamp an event: fresh wall-clock reading when a clock is
@@ -202,14 +247,29 @@ class RealInstance:
     def free_slots(self) -> List[int]:
         return [i for i, r in enumerate(self.slot_rid) if r < 0]
 
-    def _allocate(self, rid: int, n_tokens: int):
+    def _allocate(self, rid: int, n_tokens: int, token_ids=None):
         """Allocate primary blocks, evicting hosted replicas under pressure
         (the paper's rule: replicas are the first thing dropped)."""
         need = self.pool.resident_blocks_for(n_tokens)
+        protect = ()
+        if self.ecfg.prefix_cache and token_ids is not None \
+                and not self.pool.window:
+            # pressure estimate: pages the prefix cache will cover cost no
+            # fresh slots — don't evict failover state to make room for them
+            matched, partial = self.pool.match_prefix(
+                token_ids[:n_tokens], peek=True)
+            need -= len(matched) + (1 if partial else 0)
+            protect = {e.key for e in matched}
+            if partial:
+                protect.add(partial[0].key)
         if need > self.pool.n_free and not self.pool.window:
-            self.pool.evict_replicas_for_pressure(need)
+            # warm refcount-0 prefix pages are pure cache: reclaim them
+            # before dropping peers' failover state
+            self.pool.evict_cached_prefixes(need, protect=protect)
+            if need > self.pool.n_free:
+                self.pool.evict_replicas_for_pressure(need)
         try:
-            refs = self.pool.allocate(rid, n_tokens)
+            refs = self.pool.allocate(rid, n_tokens, token_ids=token_ids)
         finally:
             # allocate's windowed fallback may have recycled other requests'
             # out-of-window head pages: their hosted replicas need retiring
@@ -225,11 +285,30 @@ class RealInstance:
         slot = slots[0]
         n = req.prompt_len
         try:                           # reserve blocks BEFORE prefill so a
-            refs = self._allocate(req.rid, n)   # full pool costs no compute
+            refs = self._allocate(     # full pool costs no compute
+                req.rid, n, token_ids=req.prompt_tokens)
         except MemoryError:
             return False
+        # prefix-cache hit accounting: tokens covered by interned pages
+        # attached during allocation (0 when the cache is off or cold)
+        cached = self.pool.prefix_hits_by_rid.pop(req.rid, 0) \
+            if self.ecfg.prefix_cache else 0
         self.prefill_total_tokens += n
+        self.prefix_cached_tokens += cached
         page = self.pool.page_size
+        # write plan over the cached run: fully-covered shared pages are
+        # never written; a shared page the prompt diverges INSIDE is CoW'd
+        # to a private slot and rewritten (cow_page); a shared page the
+        # prompt merely ends inside is kept shared (rows past the prompt
+        # are masked by the sequence length)
+        skip_pages, cow_page = 0, -1
+        if cached:
+            skip_pages = cached // page
+            if cached % page:
+                if n > cached:
+                    cow_page = skip_pages
+                else:
+                    skip_pages += 1
         req.admit_time = self._stamp(now)       # prefill starts now
         bucket = PD.next_bucket(n, lo=page)
         toks = np.zeros((1, bucket), np.int32)
@@ -244,24 +323,48 @@ class RealInstance:
             req.state = RequestState.PREFILL
             k_buf, v_buf = PD.init_chunk_buffers(self.cfg, bucket,
                                                  device=self.device)
+            done = 0
+            if cached and self.prefix_skip_compute:
+                # resume past the cached run, floored to a chunk boundary
+                # (the chunks keep the cold run's shapes); the final chunk
+                # always runs (its logits sample the first token), so the
+                # resume point stays < n
+                c = min(self.chunk, bucket)
+                done = (min(cached, n - 1) // c) * c
+                if done:
+                    PD.seed_chunk_buffers(
+                        k_buf, v_buf, self.pool.k, self.pool.v,
+                        [r.slot for r in refs[:-(-cached // page)]])
             self.prefill_jobs[slot] = {
                 "req": req, "refs": refs, "toks": toks, "bucket": bucket,
-                "done": 0, "pages_written": 0, "k_buf": k_buf,
-                "v_buf": v_buf}
+                "done": done,
+                "pages_written": skip_pages if cow_page < 0 else cow_page,
+                "cow_page": cow_page, "k_buf": k_buf, "v_buf": v_buf}
             return True
         logits, k_seq, v_seq = self._prefill(self.params, self._tensor(toks), n)
+        self.prefill_compute_tokens += n   # monolithic: always full compute
         # windowed archs: only the window-covering tail pages were allocated
-        # (refs[0].logical_idx > 0 for long prompts) — write just those
-        span = refs[0].logical_idx * page
-        self.pool.write_blocks(
-            [r.slot for r in refs],
-            *PD.pack_pages(k_seq[:, span:], v_seq[:, span:], len(refs), page))
+        # (refs[0].logical_idx > 0 for long prompts) — write just those.
+        # Shared prefix pages already hold these exact bytes and are never
+        # written in place; the diverging page goes private first
+        first_page = refs[0].logical_idx
+        lo = skip_pages if cow_page < 0 else cow_page
+        if cow_page >= 0:
+            self.pool.ensure_private(req.rid, cow_page)
+        if lo < len(refs):
+            span = (first_page + lo) * page
+            self.pool.write_blocks(
+                [r.slot for r in refs[lo:]],
+                *PD.pack_pages(k_seq[:, span:], v_seq[:, span:],
+                               len(refs) - lo, page))
         self._seat(slot, req, refs, logits, now)
         return True
 
     def _first_token(self, req: Request, logits, now: float):
         """Sample the prompt's first token off the final prefill logits and
-        stamp TTFT."""
+        stamp TTFT — shared by colocated seating and the handoff path (the
+        PREFILL side samples, so TTFT means prefill completion in both
+        modes)."""
         first = sample(logits, generator=self._generator,
                        temperature=self.ecfg.temperature)
         req.output_tokens = [int(first[0])]
@@ -275,11 +378,18 @@ class RealInstance:
     def _seat(self, slot: int, req: Request, refs, logits, now: float):
         """Admission tail: point the slot at its pages, sample the prompt's
         first token, and flip the request to DECODE."""
+        if self.ecfg.prefix_cache and req.prompt_tokens is not None:
+            # prefill wrote every prompt page: publish the fully-covered
+            # ones into the prefix index (no-op for pages already shared)
+            self.pool.intern_prefix(req.rid,
+                                    req.prompt_tokens[:req.prompt_len])
         row = np.full(self.pages_per_seq, self.scratch, np.int32)
         row[:len(refs)] = [r.slot for r in refs]
         self.block_table[slot] = row
         self.slot_base[slot] = refs[0].logical_idx * self.pool.page_size
-        self._first_token(req, logits, now)
+        if req.generated == 0:
+            # a handoff that fell back to local seating already sampled
+            self._first_token(req, logits, now)
         req.state = RequestState.DECODE
         self.slot_pos[slot] = req.prompt_len
 
@@ -310,12 +420,24 @@ class RealInstance:
                 self.params, self._tensor(job["toks"][:, c0:c0 + c]), c0,
                 take, job["k_buf"], job["v_buf"])
             job["done"] = c0 + take
+            self.prefill_compute_tokens += take
             req.prefill_progress = job["done"] / n
             ran += 1
             final = job["done"] >= n
             self._write_ready_pages(job, final)
             if final:
-                self._seat(slot, req, job["refs"], logits, now)
+                if self.handoff_mode:
+                    # disaggregation: the prompt's pages are in the pool but
+                    # the slot parks in PREFILL state — the engine streams
+                    # the remaining pages to the decode target and seats the
+                    # request THERE. The first token is sampled now, so TTFT
+                    # means prefill completion, as colocated.
+                    self._first_token(req, logits, now)
+                    self.ready_handoffs.append(
+                        {"slot": slot, "req": req, "refs": job["refs"],
+                         "logits": logits})
+                else:
+                    self._seat(slot, req, job["refs"], logits, now)
                 del self.prefill_jobs[slot]
         return ran
 
@@ -336,6 +458,13 @@ class RealInstance:
         lo = job["pages_written"]
         if ready <= lo:
             return
+        cow = job["cow_page"]
+        if 0 <= cow < ready:
+            # this batch writes into a shared page the prompt diverges
+            # inside: copy-on-write to a private slot before the write
+            # lands (the interned page is never mutated in place)
+            self.pool.ensure_private(job["req"].rid, refs[cow].logical_idx)
+            job["cow_page"] = -1
         kv_dt = PD.kv_dtype(self.cfg)
         span0 = (first_page + lo) * page
         span1 = (first_page + ready) * page
@@ -428,6 +557,13 @@ class RealInstance:
         out, self.pending_retires = self.pending_retires, []
         return out
 
+    def drain_ready_handoffs(self) -> List[dict]:
+        """Prefill jobs whose final chunk ran since the last drain (handoff
+        mode): their pages are written and the request is ready to stream
+        to its decode target."""
+        out, self.ready_handoffs = self.ready_handoffs, []
+        return out
+
     # -- failover --------------------------------------------------------------
     def adopt_replica(self, peer: int, req: Request, meta,
                       migration: bool = True) -> bool:
@@ -475,10 +611,102 @@ class RealInstance:
         self.requests[req.rid] = req
         return True
 
+    # -- disaggregated handoff (decode side) -----------------------------------
+    def seat_handoff(self, peer: int, req: Request) -> bool:
+        """Seat a fully-streamed prefill: promote the hosted pages to
+        primary and start decoding — the handoff twin of ``adopt_replica``,
+        minus the migration count (a handoff is the normal path, not a
+        failure). The promoted pages carry the exact bytes the prefill
+        wrote, so decode is byte-identical to colocated serving. Returns
+        False (hosted table untouched) when no slot is free yet — the
+        engine retries next step."""
+        meta = {"pos": req.prompt_len, "tokens": list(req.output_tokens)}
+        if not self.adopt_replica(peer, req, meta, migration=False):
+            return False
+        if self.ecfg.prefix_cache and req.prompt_tokens is not None:
+            # same publication a colocated _seat does: the streamed prompt
+            # pages become this pool's warm prefix chain
+            self.pool.intern_prefix(req.rid,
+                                    req.prompt_tokens[:req.prompt_len])
+        return True
+
+    def adopt_prefill_stream(self, peer: int, req: Request) -> bool:
+        """Streamed-handoff recovery: the prefill source died mid-stream,
+        and the pages it already shipped are hosted HERE. Promote them and
+        resume the chunked prefill from the first unstreamed chunk, seeding
+        the chunk buffers from the streamed pages — no recompute for work
+        that already crossed the wire. Only bitwise-lossless configs can
+        seed (``_can_seed_chunks``); everything else returns False and the
+        caller restarts the request from scratch (deterministic recompute
+        keeps the stream byte-identical either way)."""
+        hosted = self.pool.replica_table(peer, req.rid)
+        page = self.pool.page_size
+        n = req.prompt_len
+        usable = 0
+        for i, ref in enumerate(hosted):
+            if ref.logical_idx != i or ref.n_filled < page:
+                break
+            usable += 1
+        slots = self.free_slots()
+        if not (slots and self.alive and self._can_seed_chunks
+                and usable and usable == len(hosted)
+                and usable * page < n):
+            # nothing streamed, a windowed tail (logical start > 0), or a
+            # config that cannot seed buffers losslessly: full restart
+            self.pool.drop_replica(peer, req.rid)
+            return False
+        # snapshot: promote returns the LIVE table list, which the extending
+        # allocate below appends into
+        refs = list(self.pool.promote_replica(peer, req.rid))
+        for ref in refs:
+            ref.n_filled = page
+            ref.replicated = False
+        try:
+            refs = refs + self.pool.allocate(req.rid, n - usable * page)
+        except MemoryError:
+            self.pool.free(req.rid)
+            return False
+        slot = slots[0]
+        bucket = PD.next_bucket(n, lo=page)
+        toks = np.zeros((1, bucket), np.int32)
+        toks[0, :n] = req.prompt_tokens
+        k_buf, v_buf = PD.init_chunk_buffers(self.cfg, bucket,
+                                             device=self.device)
+        c = min(self.chunk, bucket)
+        # resume floored to a chunk boundary; the final chunk always runs
+        # (its logits sample the first token), so resume stays < n
+        done = (min(usable * page, n - 1) // c) * c
+        if done:
+            PD.seed_chunk_buffers(k_buf, v_buf, self.pool.k, self.pool.v,
+                                  [r.slot for r in refs[:usable]])
+        self.slot_rid[slot] = req.rid
+        self.requests[req.rid] = req
+        req.state = RequestState.PREFILL
+        req.instance_id = self.instance_id
+        req.prefill_progress = done / n
+        req.n_migrations += 1
+        self.prefill_jobs[slot] = {
+            "req": req, "refs": refs, "toks": toks, "bucket": bucket,
+            "done": done, "pages_written": usable, "cow_page": -1,
+            "k_buf": k_buf, "v_buf": v_buf}
+        return True
+
+    def finish_handoff(self, rid: int):
+        """The decode side seated the streamed request: publish its prompt
+        pages into OUR prefix index (warm for future arrivals with the same
+        prefix) and free the parked slot."""
+        req = self.requests.get(rid)
+        if req is None:
+            return
+        if self.ecfg.prefix_cache and req.prompt_tokens is not None:
+            self.pool.intern_prefix(rid, req.prompt_tokens[:req.prompt_len])
+        self.release(rid)
+
     def fail(self):
         self.alive = False
         self.pending_retires.clear()   # a dead primary sends no retires
         self.prefill_jobs.clear()      # mid-chunk work is lost with the node
+        self.ready_handoffs.clear()
         # a dead instance holds no requests (its memory is lost) — the
         # engine captures the victims first
         self.requests = {}
@@ -510,7 +738,22 @@ class RealEngine:
             gen.manual_seed(seed)
             params = transformer.init_params(cfg, gen, device=self.device)
         self.params = params
-        self.roles = {i: "both" for i in range(n_instances)}
+        # prefill/decode disaggregation: the first max(1, n//2) instances
+        # take the prefill role, the rest decode; without it every
+        # instance is colocated ("both")
+        if self.ecfg.disaggregate:
+            if n_instances < 2:
+                raise ValueError("disaggregate=True needs >= 2 instances "
+                                 "(one per role)")
+            if self.ecfg.prefill_chunk <= 0:
+                raise ValueError(
+                    "disaggregate=True requires prefill_chunk > 0 — pages "
+                    "stream to the decode side as chunks complete")
+            n_pre = max(1, n_instances // 2)
+            self.roles = {i: "prefill" if i < n_pre else "decode"
+                          for i in range(n_instances)}
+        else:
+            self.roles = {i: "both" for i in range(n_instances)}
         # the control plane: membership/epoch, replication placement,
         # least-loaded routing, and the multi-failure recovery planner
         self.control = ControlPlane(
@@ -519,10 +762,18 @@ class RealEngine:
         # rid -> {"peer", "home", "pos", "tokens"} (tiny host-side metadata;
         # the KV payload lives in the target pool's hosted replica blocks)
         self.replica_meta: Dict[int, dict] = {}
-        # staged copies at the end of step N ship at the top of step N+1 (or
-        # at the fail/rejoin barrier); totals count at FLUSH time
+        # the staged block transport both byte streams ride: ring
+        # replication ("repl") and the prefill->decode handoff ("handoff").
+        # Copies staged at the end of step N ship at the top of step N+1
+        # (or at the fail/rejoin barrier); totals count at FLUSH time
         self.transport = TransportChannel(self.instances,
                                           view=self.control.view)
+        # rid -> in-flight handoff record (disaggregation): which prefill
+        # instance is streaming it, the decode target, and whether the
+        # final chunk's pages have landed (seat condition)
+        self._handoffs: Dict[int, dict] = {}
+        self.handoffs_seated = 0
+        self.handoff_streams_resumed = 0
         # arrivals not yet routed (hold work only while NO instance is alive)
         self.waiting: List[Request] = []
         self.queues: Dict[int, List[Request]] = {
@@ -536,22 +787,35 @@ class RealEngine:
         self.repl_steps = 0
         self.active_request_steps = 0
         self.retire_msgs_total = 0
+        # shared-page replication: a prefix page ships AT MOST ONCE per
+        # (ring target, chain key); later requests referencing it on the
+        # same target add a refcount, not bytes. Hosting events count per
+        # (target, key) MEMBERSHIP: fail_instance prunes a dead target's
+        # keys, so a rejoin's fresh pool re-counts the hosting when the key
+        # ships again and the ship ratio stays exact across failures
+        self.repl_shared_refs_total = 0
+        self.repl_shared_hostings_total = 0
+        self._shared_hosted_keys: set = set()   # live (target, key) pairs
         # (n_active_slots, wall_seconds) per engine step that decoded
         self.step_samples: List[tuple] = []
 
     def _make_instance(self, instance_id: int) -> RealInstance:
         return RealInstance(self.cfg, self.params, self.ecfg, instance_id,
                             executor=self.executor, clock=self.clock,
-                            device=self.device)
+                            device=self.device, role=self.roles[instance_id])
 
-    # -- replication traffic accounting --------------------------------------
+    # -- replication traffic accounting (shipped = bytes that LANDED) ---------
     @property
     def repl_blocks_total(self) -> int:
-        return self.transport.shipped.blocks
+        return self.transport.shipped["repl"].blocks
 
     @property
     def repl_bytes_total(self) -> int:
-        return self.transport.shipped.bytes
+        return self.transport.shipped["repl"].bytes
+
+    @property
+    def repl_shared_copies_total(self) -> int:
+        return self.transport.shipped["repl"].shared_copies
 
     def submit(self, req: Request):
         self.waiting.append(req)
@@ -561,10 +825,20 @@ class RealEngine:
         """Instance load as the LB sees it: active slots + queued depth."""
         return len(inst.requests) + len(self.queues[inst.instance_id])
 
-    def _route(self, req: Request, front: bool = False):
-        """Place the request on the least-loaded ALIVE instance's queue
-        (front=True keeps requeued work ahead of later arrivals)."""
+    def _admit_targets(self) -> List[RealInstance]:
+        """Instances that accept NEW work. With disaggregation, arrivals go
+        to prefill-role instances only (decode instances receive requests
+        by handoff, not admission); if every prefill-role instance is dead
+        the survivors serve colocated — roles are soft."""
         alive = [i for i in self.instances if i.alive]
+        if not self.ecfg.disaggregate:
+            return alive
+        return [i for i in alive if i.role == "prefill"] or alive
+
+    def _route(self, req: Request, front: bool = False):
+        """Place the request on the least-loaded admitting instance's queue
+        (front=True keeps requeued work ahead of later arrivals)."""
+        alive = self._admit_targets()
         if not alive:
             self.waiting.insert(0, req) if front else self.waiting.append(req)
             return
@@ -596,9 +870,12 @@ class RealEngine:
         made forward progress (0 while stalled or idle)."""
         self.t = self.clock() if self.clock is not None else self.t + 1.0
         _t0 = time.perf_counter()
-        # async shipping: flush the PREVIOUS step's staged deltas before
-        # anything here mutates the pools
+        # async shipping: flush the PREVIOUS step's staged jobs (replica
+        # deltas AND handoff pages) before anything here mutates the pools,
+        # then seat any handoff whose final pages landed
         self.flush_replication()
+        if self._handoffs:
+            self._complete_handoffs()
         due = self.control.planner.next_due(self.t)
         if due is not None:
             self.rejoin_instance(due)
@@ -614,12 +891,14 @@ class RealEngine:
                 q.pop(0)
                 progressed += 1
         # queued work an instance cannot place flows to any peer with
-        # headroom (free slots and pool pages are separate limits)
+        # headroom (free slots and pool pages are separate limits; under
+        # disaggregation only prefill-capable peers take overflow)
+        overflow = self._admit_targets()
         for inst in alive:
             q = self.queues[inst.instance_id]
             if not q:
                 continue
-            for other in self.control.routing.order(alive, self._load):
+            for other in self.control.routing.order(overflow, self._load):
                 if other is inst:
                     continue
                 while q and other.free_slots() and other.admit(q[0], self.t):
@@ -632,6 +911,11 @@ class RealEngine:
             # one prompt chunk per mid-prefill slot, then the decode batch:
             # admissions interleave with generation instead of stalling it
             inst.prefill_step(self.t)
+            if inst.handoff_mode:
+                # stream every page the chunks just finished writing (and
+                # the whole remainder for prompts whose final chunk ran); a
+                # decode-role instance serving colocated never streams
+                self._stage_handoffs(inst)
             finished = inst.step(self.t)
             # retire hosted replicas of pages the primary recycled this step
             # BEFORE the delta pass, so replica tables mirror the window
@@ -655,6 +939,11 @@ class RealEngine:
         if self.ecfg.replicate:
             self._replicate()
             self.repl_steps += 1
+        if self._handoffs and not self.ecfg.repl_async:
+            # synchronous shipping: the handoff pages staged this step ship
+            # now — seat now instead of waiting for the next step's flush
+            self.flush_replication(block=True)
+            self._complete_handoffs()
         if n_active:
             self.step_samples.append((n_active, time.perf_counter() - _t0))
             if len(self.step_samples) > 20000:      # bound long-run memory
@@ -685,8 +974,19 @@ class RealEngine:
         step. Jobs toward a dead target (or ``exclude``) are dropped."""
         self.transport.flush(block=block, exclude=exclude)
 
+    def _commit_shared_hostings(self, tgt_id: int, grown):
+        """Account one growth's shared-page hostings: refcounts per
+        reference; hosting events per NEW (target, key) membership — the
+        ship-ratio denominator."""
+        for key in grown.shared_keys:
+            self.repl_shared_refs_total += 1
+            if (tgt_id, key) not in self._shared_hosted_keys:
+                self._shared_hosted_keys.add((tgt_id, key))
+                self.repl_shared_hostings_total += 1
+
     def _stage_replication(self):
         full = self.ecfg.replication == "full"
+        pc = self.ecfg.prefix_cache
         for inst in self.instances:
             if not inst.alive:
                 continue
@@ -696,7 +996,10 @@ class RealEngine:
             tgt = self.instances[tgt_id]
             src_slots: List[int] = []
             dst_slots: List[int] = []
+            shared_copies = 0
             for rid, req in inst.requests.items():
+                # mid-chunked-prefill requests have no complete page set to
+                # resume from: their pages ship once they enter DECODE
                 if req.state != RequestState.DECODE:
                     continue
                 # the ring target can change (failure, spare rejoin): drop
@@ -707,14 +1010,28 @@ class RealEngine:
                     self.instances[meta["home"]].pool.drop_replica(
                         meta["peer"], rid)
                 table = inst.pool.table(rid)
-                reconcile_replica(tgt.pool, inst.instance_id, rid, table)
-                if not host_table_growth(tgt.pool, inst.instance_id, rid,
-                                         table):
-                    continue   # no headroom on target; retry next pass
+                # retires keep the hosted table in lockstep with the live
+                # window; if it ever drifts (or a shared page went private),
+                # drop it and re-host the current window
+                reconcile_replica(inst.pool, tgt.pool, inst.instance_id,
+                                  rid, table, prefix_cache=pc)
                 rtab = tgt.pool.replica_table(inst.instance_id, rid)
+                if len(table) > len(rtab):
+                    grown = host_table_growth(
+                        inst.pool, tgt.pool, inst.instance_id, rid, table,
+                        prefix_cache=pc)
+                    if grown is None:
+                        continue   # no headroom on target; retry next pass
+                    self._commit_shared_hostings(tgt_id, grown)
+                    for s, d in grown.copies:
+                        src_slots.append(s)
+                        dst_slots.append(d)
+                    shared_copies += len(grown.copies)
+                    rtab = tgt.pool.replica_table(inst.instance_id, rid)
                 # copy when the primary block is dirty OR the hosted block
                 # has never received content (fresh hosting)
-                s, d = collect_dirty(table, rtab, full=full)
+                s, d = collect_dirty(tgt.pool, table, rtab, full=full,
+                                     prefix_cache=pc)
                 src_slots += s
                 dst_slots += d
                 self.replica_meta[rid] = {
@@ -724,8 +1041,134 @@ class RealEngine:
                 }
                 req.replicated_through = req.total_len
             if src_slots:
-                self.transport.stage(inst.instance_id, tgt_id,
-                                     (src_slots, dst_slots))
+                self.transport.stage("repl", inst.instance_id, tgt_id,
+                                     (src_slots, dst_slots),
+                                     shared_copies=shared_copies)
+
+    # -- prefill/decode disaggregation (handoff stream) ------------------------
+    def _pick_decode_target(self, src_id: int) -> Optional[int]:
+        """Least-loaded alive decode-role instance (any other alive peer if
+        no decode-role instance survives; None means seat locally — the
+        colocated fallback)."""
+        cands = [i for i in self.instances
+                 if i.alive and i.instance_id != src_id
+                 and i.role != "prefill"]
+        if not cands:
+            cands = [i for i in self.instances
+                     if i.alive and i.instance_id != src_id]
+        if not cands:
+            return None
+        return min(cands,
+                   key=lambda i: (len(i.requests), i.instance_id)).instance_id
+
+    def _stage_handoffs(self, inst: RealInstance):
+        """Stream ``inst``'s prefill output: every fully-covered prompt
+        page written since the last pass is hosted on (and staged to) the
+        decode target; a prompt whose final chunk just ran streams its
+        whole remainder (partial tail page included) and is marked ready
+        to seat once those bytes land."""
+        for h in inst.drain_ready_handoffs():
+            rec = self._handoffs.setdefault(
+                h["req"].rid, {"src": inst.instance_id, "dst": None,
+                               "req": h["req"], "gen": 0, "inflight": 0})
+            rec.update(refs=h["refs"], logits=h["logits"], final=True,
+                       slot=h["slot"], ready_to_seat=False)
+        for job in inst.prefill_jobs.values():
+            rid = job["req"].rid
+            if rid not in self._handoffs:
+                self._handoffs[rid] = {
+                    "src": inst.instance_id, "dst": None, "req": job["req"],
+                    "gen": 0, "inflight": 0, "final": False}
+        for rec in list(self._handoffs.values()):
+            if rec["src"] == inst.instance_id:
+                self._stream_handoff(inst, rec)
+
+    def _stream_handoff(self, inst: RealInstance, rec: dict):
+        """Advance one handoff record: (re)pick the decode target, host +
+        stage the pages that are ready but not yet hosted there, and flag
+        the record seatable when the final message lands."""
+        req = rec["req"]
+        rid = req.rid
+        if rec["dst"] is not None and not self.instances[rec["dst"]].alive:
+            # decode target died before seating: hosted pages died with its
+            # pool — re-target and re-stream from the source (which still
+            # holds everything)
+            rec.update(dst=None, inflight=0, ready_to_seat=False)
+            rec["gen"] += 1
+        if rec["dst"] is None:
+            rec["dst"] = self._pick_decode_target(inst.instance_id)
+        if rec["dst"] is None or rec["dst"] == inst.instance_id:
+            # no peer to decode on: colocated fallback — the parked slot
+            # seats right here once the final chunk has run
+            if rec.get("final"):
+                inst._seat(rec["slot"], req, rec["refs"], rec["logits"],
+                           self.t)
+                self.handoffs_seated += 1
+                del self._handoffs[rid]
+            return
+        dst = self.instances[rec["dst"]]
+        if rec.get("final"):
+            refs, ready = rec["refs"], len(rec["refs"])
+        else:
+            job = inst.prefill_jobs.get(inst.slot_of(rid))
+            if job is None:
+                return
+            refs, ready = job["refs"], job["pages_written"]
+        pc = self.ecfg.prefix_cache
+        reconcile_replica(inst.pool, dst.pool, inst.instance_id, rid,
+                          refs[:ready], prefix_cache=pc)
+        rtab = dst.pool.replica_table(inst.instance_id, rid)
+        src_slots: List[int] = []
+        dst_slots: List[int] = []
+        shared_copies = 0
+        if ready > len(rtab):
+            grown = host_table_growth(inst.pool, dst.pool, inst.instance_id,
+                                      rid, refs[:ready], prefix_cache=pc)
+            if grown is None:
+                return      # no headroom on the target yet; retry next step
+            self._commit_shared_hostings(rec["dst"], grown)
+            for s, d in grown.copies:
+                src_slots.append(s)
+                dst_slots.append(d)
+            shared_copies = len(grown.copies)
+            rtab = dst.pool.replica_table(inst.instance_id, rid)
+        # fresh private hostings carry rref.replicated == False — the same
+        # dirty walk replication uses picks exactly those up
+        s, d = collect_dirty(dst.pool, refs[:ready], rtab, full=False,
+                             prefix_cache=pc)
+        src_slots += s
+        dst_slots += d
+        if src_slots:
+            gen = rec["gen"]
+
+            def landed(rec=rec, gen=gen):
+                if rec["gen"] == gen:
+                    rec["inflight"] -= 1
+            rec["inflight"] += 1
+            self.transport.stage(
+                "handoff", inst.instance_id, rec["dst"],
+                (src_slots, dst_slots), shared_copies=shared_copies,
+                on_shipped=landed)
+        if rec.get("final") and len(rtab) == len(refs):
+            rec["ready_to_seat"] = True
+
+    def _complete_handoffs(self):
+        """Seat every handoff whose final pages have landed on a live
+        decode target, then release the prefill side's parked slot (its
+        pages stay warm in the source's prefix index)."""
+        for rid, rec in list(self._handoffs.items()):
+            if not (rec.get("ready_to_seat") and rec.get("inflight", 0) == 0):
+                continue
+            dst = self.instances[rec["dst"]]
+            if not dst.alive:
+                continue    # re-targeted by the next stream pass
+            if not dst.seat_handoff(rec["src"], rec["req"]):
+                continue    # no free slot on the target yet; retry
+            self.handoffs_seated += 1
+            src = self.instances[rec["src"]]
+            if src.alive:
+                src.finish_handoff(rid)
+            del self._handoffs[rid]
 
     def replication_stats(self) -> dict:
         steps = max(self.repl_steps, 1)
@@ -741,17 +1184,102 @@ class RealEngine:
             "retires_per_request_step": self.retire_msgs_total / req_steps,
         }
 
-    def prefix_stats(self) -> dict:
-        """Prefill accounting (the prefix cache is not ported yet)."""
-        insts = self.instances
-        return {"enabled": False,
-                "prefill_total_tokens": sum(i.prefill_total_tokens
-                                            for i in insts)}
-
     def disagg_stats(self) -> dict:
-        """Disaggregation status (not ported yet: every instance colocated)."""
-        return {"enabled": False,
-                "roles": {i.instance_id: i.role for i in self.instances}}
+        """Disaggregation accounting: handoff stream traffic (same wire
+        format as replication — check the bytes against block_nbytes) and
+        seat/resume counts for the /health endpoint."""
+        shipped = self.transport.shipped["handoff"]
+        return {
+            "enabled": self.ecfg.disaggregate,
+            "roles": {i.instance_id: i.role for i in self.instances},
+            "handoffs_in_flight": len(self._handoffs),
+            "handoffs_seated": self.handoffs_seated,
+            "handoff_streams_resumed": self.handoff_streams_resumed,
+            "handoff_blocks_total": shipped.blocks,
+            # state blobs ride only with the hybrid family, not ported yet
+            "handoff_blobs_total": 0,
+            "handoff_bytes_total": shipped.bytes,
+            "handoff_shared_zero_copy_pages":
+                self.repl_shared_refs_total - shipped.shared_copies
+                - self.transport.shipped["repl"].shared_copies,
+        }
+
+    def prefix_stats(self) -> dict:
+        """Prefix-cache effectiveness: hit rate over admitted prompt
+        tokens, prefill compute actually run, CoW/eviction churn, and the
+        shared-page replication dedup ratio (copies per distinct (target,
+        chain key) hosting — 1.0 means every shared page shipped exactly
+        once per target)."""
+        insts = self.instances
+        total = sum(i.prefill_total_tokens for i in insts)
+        compute = sum(i.prefill_compute_tokens for i in insts)
+        cached = sum(i.prefix_cached_tokens for i in insts)
+        return {
+            "enabled": self.ecfg.prefix_cache,
+            "prefill_total_tokens": total,
+            "prefill_compute_tokens": compute,
+            "prefix_cached_tokens": cached,
+            "hit_rate": cached / max(total, 1),
+            "lookups": sum(i.pool.prefix_lookups for i in insts),
+            "interned_pages":
+                sum(i.pool.prefix_interned_pages for i in insts),
+            "hosted_pages": sum(i.pool.prefix_hosted_pages for i in insts),
+            "evicted_pages":
+                sum(i.pool.prefix_evicted_pages for i in insts),
+            "cow_copies": sum(i.pool.cow_copies for i in insts),
+            "shared_replica_refs": self.repl_shared_refs_total,
+            "shared_replica_copies": self.repl_shared_copies_total,
+            # denominator is the monotone hosting COUNTER, not the live key
+            # set: a target that failed and rejoined re-hosts (and
+            # re-ships) the same keys, and both sides must see that
+            "shared_page_ship_ratio":
+                self.repl_shared_copies_total
+                / max(self.repl_shared_hostings_total, 1),
+        }
+
+    def _handoffs_on_fail(self, instance_id: int, victims, resumed, event,
+                          standard: bool):
+        """Failover for in-flight prefill→decode handoffs.
+
+        A dead DECODE target costs nothing: the source still holds every
+        page, so the record re-targets and re-streams on the next pass. A
+        dead PREFILL source resumes on the instance its stream already
+        landed on — seated outright if the final chunk had arrived,
+        otherwise prefill restarts from the last fully streamed page
+        (chunk-aligned) instead of from token zero. Returns the victims
+        list with handoff requests (handled here) removed."""
+        handled = set()
+        for rid, rec in list(self._handoffs.items()):
+            if rec["dst"] == instance_id:
+                rec.update(dst=None, inflight=0, ready_to_seat=False)
+                rec["gen"] += 1
+            if rec["src"] != instance_id:
+                continue
+            req = rec["req"]
+            handled.add(rid)
+            dst = None if rec["dst"] is None else self.instances[rec["dst"]]
+            ok = False
+            if not standard and dst is not None and dst.alive:
+                if rec.get("ready_to_seat") and rec.get("inflight", 0) == 0:
+                    ok = dst.seat_handoff(instance_id, req)
+                    if ok:
+                        self.handoffs_seated += 1
+                else:
+                    ok = dst.adopt_prefill_stream(instance_id, req)
+                    if ok:
+                        self.handoff_streams_resumed += 1
+                if not ok:
+                    dst.pool.drop_replica(instance_id, rid)
+            if ok:
+                resumed.append(rid)
+                event["resumed"] += 1
+            else:
+                req.restart()
+                req.state = RequestState.QUEUED
+                event["restarted"] += 1
+                self._route(req, front=True)
+            del self._handoffs[rid]
+        return [r for r in victims if r.rid not in handled]
 
     # -- fault entry points ------------------------------------------------------
     def apply_fault(self, spec: FaultSpec) -> Optional[List[int]]:
@@ -819,6 +1347,9 @@ class RealEngine:
                  "t_rejoin": -1.0, "mttr": -1.0}
         self.failure_events.append(event)
         resumed = []
+        if self._handoffs:
+            victims = self._handoffs_on_fail(instance_id, victims, resumed,
+                                             event, standard)
         restarted: List[Request] = []
         for req in victims:
             meta = self.replica_meta.pop(req.rid, None)
@@ -853,6 +1384,12 @@ class RealEngine:
                     self.replica_meta.pop(rid)
                     for ref in other.pool.table(rid):
                         ref.replicated = False
+        # the dead pool's interned pages died with it: forget its hosting
+        # keys so a re-host after rejoin counts as a fresh hosting AND a
+        # fresh copy — the ship-ratio denominator tracks live state
+        self._shared_hosted_keys = {
+            (t, k) for (t, k) in self._shared_hosted_keys
+            if t != instance_id}
         if standard:
             self.stall_until = self.t + self.ecfg.reload_penalty
         if self.ecfg.auto_rejoin:

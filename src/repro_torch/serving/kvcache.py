@@ -8,13 +8,16 @@ runs real compute, or pure metadata otherwise — the allocation/replication
 logic is identical.
 
 The pool is unquantized, or int8 with per-(layer, head, token) scales
-(``quantized=True``). This port has no prefix cache or state blobs yet;
-those arrive with the engine knobs that need them.
+(``quantized=True``). With ``prefix_cache=True`` fully-covered prompt pages
+are interned by chain hash and shared by reference (copy-on-write on
+divergence). This port has no state blobs yet: they arrive with the hybrid
+family.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+import hashlib
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -33,6 +36,28 @@ class BlockRef:
     replicated: bool = False   # safely copied to the replica target?
 
 
+PREFIX_ROOT = b"root"
+
+
+@dataclasses.dataclass
+class PrefixPage:
+    """One interned, content-addressed, immutable prefix page.
+
+    ``key`` is a chain hash H(arch_key, parent_key, page token ids), so a
+    page is only reusable under the exact same preceding context AND the
+    exact same model/dtype identity. ``refcount`` counts every live
+    BlockRef (primary *and* hosted-replica tables) pointing at ``slot``;
+    a page at refcount 0 stays cached (warm) until LRU pressure eviction.
+    """
+    key: bytes
+    parent: bytes                    # chain key of the previous page
+    tokens: Tuple[int, ...]          # this page's token ids (partial match)
+    slot: int
+    logical_idx: int                 # absolute page index in the chain
+    refcount: int = 0
+    lru: int = 0                     # last-touch tick (eviction order)
+
+
 class PagedKVPool:
     """Fixed-size pool of KV blocks with a free list.
 
@@ -47,12 +72,21 @@ class PagedKVPool:
     ``k_scale``/``v_scale`` (None on an unquantized pool). Block writes
     quantize; replication ships the int8 bytes and scales verbatim, so a
     promoted replica is bit-identical on the quantized representation.
+
+    Prefix cache (``prefix_cache=True``): ``prefix_index`` maps chain key ->
+    PrefixPage; ``_slot_prefix`` is the reverse slot -> key map (a slot is
+    interned iff present); ``_prefix_children`` maps parent key -> child
+    keys so the last (diverging) page of a lookup can still be partially
+    matched. Interned pages are never written in place; warm pages at
+    refcount 0 count as used until evicted, so a pool's used blocks are its
+    live, hosted and interned pages.
     """
 
     def __init__(self, n_blocks: int, page_size: int, n_layers: int = 0,
                  n_kv_heads: int = 0, head_dim: int = 0, real: bool = False,
                  dtype=torch.bfloat16, window: int = 0, device="cuda",
-                 quantized: bool = False):
+                 quantized: bool = False, prefix_cache: bool = False,
+                 arch_key: str = ""):
         self.n_blocks = n_blocks
         self.page_size = page_size
         self.real = real
@@ -69,6 +103,19 @@ class PagedKVPool:
         self._tables: Dict[int, List[BlockRef]] = {}      # rid -> blocks
         # replica blocks hosted on behalf of peers: (peer_node, rid) -> slots
         self._replica_tables: Dict[Tuple[int, int], List[BlockRef]] = {}
+        self.prefix_cache = prefix_cache
+        self.arch_key = arch_key
+        self.prefix_index: Dict[bytes, PrefixPage] = {}
+        self._slot_prefix: Dict[int, bytes] = {}
+        self._prefix_children: Dict[bytes, List[bytes]] = {}
+        self._lru_tick = 0
+        self.prefix_lookups = 0
+        self.prefix_hit_tokens = 0
+        self.prefix_hits_by_rid: Dict[int, int] = {}   # per-admission hits
+        self.prefix_interned_pages = 0
+        self.prefix_hosted_pages = 0     # interned via shared replication
+        self.prefix_evicted_pages = 0
+        self.cow_copies = 0
         self.k_scale = self.v_scale = None
         if real:
             shape = (n_layers, n_kv_heads, n_blocks, page_size, head_dim)
@@ -127,15 +174,23 @@ class PagedKVPool:
         first = max(0, n_tokens - self.window) // self.page_size
         return (n_tokens - 1) // self.page_size - first + 1
 
-    def allocate(self, rid: int, n_tokens: int) -> List[BlockRef]:
+    def allocate(self, rid: int, n_tokens: int,
+                 token_ids: Optional[Sequence[int]] = None) -> List[BlockRef]:
         """Allocate blocks; raises MemoryError if full (caller should evict
         replicas first — the paper's pressure rule).
 
         Fresh rid: blocks for an n_tokens-long prompt (on a windowed pool
         only the pages intersecting the window of the next write position;
         logical indices start at the window's first page). Existing rid:
-        appends blocks for n_tokens MORE tokens."""
+        appends blocks for n_tokens MORE tokens.
+
+        With ``prefix_cache`` on and ``token_ids`` given for a fresh rid
+        whose whole prompt is resident, the longest interned prefix chain
+        is attached by reference (refcount++) instead of popping fresh
+        slots — only uncovered pages consume the free list."""
         table = self._tables.get(rid)
+        shared: List[Tuple[PrefixPage, int]] = []   # (entry, tokens covered)
+        protect: Iterable[bytes] = ()
         if table:
             start = table[-1].logical_idx + 1
             need = self.blocks_for_tokens(n_tokens)
@@ -145,6 +200,24 @@ class PagedKVPool:
                      if self.window else 0)
             need = self.resident_blocks_for(n_tokens)
             remaining = n_tokens - start * self.page_size
+            if (self.prefix_cache and token_ids is not None and start == 0
+                    and n_tokens > 0):
+                matched, partial = self.match_prefix(token_ids[:n_tokens])
+                shared = [(e, self.page_size) for e in matched]
+                if partial is not None:
+                    shared.append(partial)
+                protect = {e.key for e, _ in shared}
+                start = len(shared)
+                need -= len(shared)
+                remaining -= len(shared) * self.page_size
+                hits = sum(c for _, c in shared)
+                self.prefix_hit_tokens += hits
+                self.prefix_hits_by_rid[rid] = hits
+        if need > self.n_free and self.prefix_cache:
+            # warm refcount-0 prefix pages are cache, not commitments:
+            # reclaim them (LRU) before touching live state — but never the
+            # chain this very allocation is about to attach
+            self.evict_cached_prefixes(need, protect=protect)
         if need > self.n_free and self.window:
             # windowed pools can be "full" while live requests still hold
             # head pages fully below their window: recycle those first, then
@@ -153,12 +226,26 @@ class PagedKVPool:
                 if self.n_free >= need:
                     break
                 self.pending_recycles.extend(self.recycle_out_of_window(r))
+            if need > self.n_free and self.prefix_cache:
+                # recycling may have dropped shared pages to refcount 0
+                self.evict_cached_prefixes(need, protect=protect)
             if need > self.n_free:
                 self.evict_replicas_for_pressure(need)
         if need > self.n_free:
             raise MemoryError(f"pool exhausted: need {need}, free {self.n_free}")
         table = self._tables.setdefault(rid, [])
         refs = []
+        for i, (entry, _covered) in enumerate(shared):
+            entry.refcount += 1
+            entry.lru = self._tick()
+            # n_filled is the page's FINAL token count for this prompt — on
+            # a mid-page divergence the page is CoW'd and rewritten during
+            # prefill, but its logical fill is fixed here
+            ref = BlockRef(rid, i, entry.slot,
+                           n_filled=min(self.page_size,
+                                        n_tokens - i * self.page_size))
+            table.append(ref)
+            refs.append(ref)
         for i in range(need):
             slot = self._free.pop()
             ref = BlockRef(rid, start + i, slot,
@@ -177,6 +264,12 @@ class PagedKVPool:
             refs[0].n_filled = 1
             return refs[0]
         ref = table[-1]
+        if ref.slot in self._slot_prefix:
+            # appending into a partially-filled shared page: copy-on-write
+            # BEFORE mutating any accounting (``_cow`` may raise
+            # MemoryError, and the caller's evict-and-retry must find the
+            # table untouched)
+            ref = self._cow(ref)
         ref.n_filled += 1
         ref.replicated = False           # block changed; needs re-replication
         return ref
@@ -208,7 +301,7 @@ class PagedKVPool:
         recycled = []
         while table and (table[0].logical_idx + 1) * self.page_size <= min_pos:
             ref = table.pop(0)
-            self._free.append(ref.slot)
+            self._release_slot(ref.slot)
             recycled.append(ref)
         return recycled
 
@@ -220,7 +313,8 @@ class PagedKVPool:
 
     def free(self, rid: int):
         for ref in self._tables.pop(rid, []):
-            self._free.append(ref.slot)
+            self._release_slot(ref.slot)
+        self.prefix_hits_by_rid.pop(rid, None)
 
     def live_requests(self) -> List[int]:
         return list(self._tables)
@@ -258,23 +352,38 @@ class PagedKVPool:
         for i, ref in enumerate(table):
             if ref.logical_idx == logical_idx:
                 table.pop(i)
-                self._free.append(ref.slot)
+                self._release_slot(ref.slot)
                 return True
         return False
 
-    def unhost_tail(self, peer: int, rid: int, n: int):
+    def unhost_tail(self, peer: int, rid: int, n: int,
+                    fresh_keys: Iterable[bytes] = ()):
         """Undo the LAST ``n`` hosted blocks of (peer, rid) — the
-        all-or-nothing staging rollback."""
+        all-or-nothing staging rollback. Private slots return to the free
+        list; shared pages are deref'd through ``_release_slot``. A shared
+        page interned BY the rolled-back hosting (its key in
+        ``fresh_keys``: its bytes never shipped) is fully evicted once its
+        refcount returns to 0, so no lookup can attach a page whose copy
+        never landed."""
         table = self._replica_tables.get((peer, rid), [])
         assert len(table) >= n, "unhosting more blocks than were hosted"
+        fresh = set(fresh_keys)
         for _ in range(n):
-            self._free.append(table.pop().slot)
+            ref = table.pop()
+            key = self._slot_prefix.get(ref.slot)
+            self._release_slot(ref.slot)
+            if key is not None and key in fresh:
+                entry = self.prefix_index.get(key)
+                if entry is not None and entry.refcount == 0:
+                    self._evict_prefix_entry(entry)
+                    self.prefix_hosted_pages -= 1
+                    self.prefix_evicted_pages -= 1   # never a real page
         if not table:
             self._replica_tables.pop((peer, rid), None)
 
     def drop_replica(self, peer: int, rid: int):
         for ref in self._replica_tables.pop((peer, rid), []):
-            self._free.append(ref.slot)
+            self._release_slot(ref.slot)
 
     def evict_replicas_for_pressure(self, blocks_needed: int) -> int:
         """Paper: 'When memory pressure happens, KevlarFlow drops the
@@ -297,6 +406,216 @@ class PagedKVPool:
         assert rid not in self._tables, "rid already live on this node"
         self._tables[rid] = refs
         return refs
+
+    # -- prefix cache (content-addressed immutable prompt pages) -------------
+    def _tick(self) -> int:
+        self._lru_tick += 1
+        return self._lru_tick
+
+    def _release_slot(self, slot: int):
+        """Drop one reference to ``slot``. An interned slot is decref'd and
+        STAYS cached (warm for future lookups, reclaimable at refcount 0);
+        a private slot goes back on the free list. This is the single
+        choke point through which every path that gives back a slot —
+        free, recycle, retire, unhost, drop — passes, so none of them ever
+        frees a page the prefix index still owns (the aliasing hazard)."""
+        key = self._slot_prefix.get(slot)
+        if key is None:
+            self._free.append(slot)
+            return
+        entry = self.prefix_index[key]
+        entry.refcount -= 1
+        assert entry.refcount >= 0, "prefix page refcount went negative"
+        entry.lru = self._tick()
+
+    def _page_key(self, parent: bytes, tokens: Tuple[int, ...]) -> bytes:
+        h = hashlib.blake2b(digest_size=16)
+        h.update(self.arch_key.encode())
+        h.update(parent)
+        h.update(",".join(str(t) for t in tokens).encode())
+        return h.digest()
+
+    def match_prefix(self, token_ids: Sequence[int], peek: bool = False):
+        """Longest interned page-aligned prefix of ``token_ids``.
+
+        Returns (full, partial): ``full`` is the list of PrefixPage entries
+        covering whole leading pages; ``partial`` is an optional
+        (PrefixPage, n_common) pair when a child of the last matched page
+        shares a sub-page run of tokens with the remainder (the prompt
+        either ends inside that page or diverges mid-page — the CoW case).
+        ``peek`` skips counters/LRU touches (capacity estimation)."""
+        if not peek:
+            self.prefix_lookups += 1
+        matched: List[PrefixPage] = []
+        parent = PREFIX_ROOT
+        n = len(token_ids)
+        for p in range(n // self.page_size):
+            toks = tuple(int(t) for t in
+                         token_ids[p * self.page_size:(p + 1) * self.page_size])
+            entry = self.prefix_index.get(self._page_key(parent, toks))
+            if entry is None:
+                break
+            matched.append(entry)
+            parent = entry.key
+        rest = [int(t) for t in token_ids[len(matched) * self.page_size:n]]
+        partial = None
+        if rest:
+            best, best_n = None, 0
+            for child_key in self._prefix_children.get(parent, ()):
+                child = self.prefix_index.get(child_key)
+                if child is None:
+                    continue
+                m = 0
+                for a, b in zip(child.tokens, rest):
+                    if a != b:
+                        break
+                    m += 1
+                if m > best_n:
+                    best, best_n = child, m
+            if best is not None and best_n > 0:
+                partial = (best, best_n)
+        if not peek:
+            tick = self._tick()
+            for entry in matched:
+                entry.lru = tick
+        return matched, partial
+
+    def prefix_key_of(self, slot: int) -> Optional[bytes]:
+        """Chain key if ``slot`` is interned, else None (private page)."""
+        return self._slot_prefix.get(slot)
+
+    def intern_prefix(self, rid: int, token_ids: Sequence[int]) -> int:
+        """Publish rid's fully-covered prompt pages into the prefix index
+        (called once prefill has written their bytes). Only whole pages
+        starting at logical page 0 are interned — sub-page prefixes are
+        never interned, and a windowed request whose head pages were never
+        materialized publishes nothing. Returns pages newly interned."""
+        if not self.prefix_cache:
+            return 0
+        table = self._tables.get(rid) or []
+        parent = PREFIX_ROOT
+        interned = 0
+        for p in range(min(len(token_ids) // self.page_size, len(table))):
+            ref = table[p]
+            if ref.logical_idx != p or ref.n_filled < self.page_size:
+                break
+            toks = tuple(int(t) for t in
+                         token_ids[p * self.page_size:(p + 1) * self.page_size])
+            key = self._page_key(parent, toks)
+            if ref.slot in self._slot_prefix or key in self.prefix_index:
+                # already shared (attached at admission), or identical
+                # content already published from another slot: keep rid's
+                # private copy, don't double-intern
+                parent = key
+                continue
+            self.prefix_index[key] = PrefixPage(
+                key, parent, toks, ref.slot, p,
+                refcount=1, lru=self._tick())
+            self._slot_prefix[ref.slot] = key
+            self._prefix_children.setdefault(parent, []).append(key)
+            self.prefix_interned_pages += 1
+            interned += 1
+            parent = key
+        return interned
+
+    def ensure_private(self, rid: int, logical_idx: int) -> BlockRef:
+        """Guarantee rid's page ``logical_idx`` is private (copy-on-write
+        if it is currently a shared prefix page). Returns the (possibly
+        re-slotted) BlockRef; prefill calls this before rewriting a
+        diverging page."""
+        for ref in self._tables.get(rid, []):
+            if ref.logical_idx == logical_idx:
+                if ref.slot in self._slot_prefix:
+                    return self._cow(ref)
+                return ref
+        raise KeyError(f"rid {rid} has no page {logical_idx}")
+
+    def _cow(self, ref: BlockRef) -> BlockRef:
+        """Copy-on-write: move ``ref`` onto a fresh private slot carrying a
+        byte copy of the shared page, then drop the shared reference. The
+        interned page itself is never mutated."""
+        old_key = self._slot_prefix[ref.slot]
+        if not self._free:
+            self.evict_cached_prefixes(1, protect={old_key})
+        if not self._free:
+            self.evict_replicas_for_pressure(1)
+        if not self._free:
+            raise MemoryError("pool exhausted during copy-on-write")
+        new_slot = self._free.pop()
+        if self.real:
+            self._clone_slot(ref.slot, new_slot)
+        self._release_slot(ref.slot)     # decref the shared page
+        ref.slot = new_slot
+        ref.replicated = False
+        self.cow_copies += 1
+        return ref
+
+    def _clone_slot(self, src: int, dst: int):
+        """Same-pool page byte copy (CoW) through the replication copy: K
+        and V, and an int8 pool's payload and both scale tensors,
+        verbatim."""
+        self.copy_blocks_to(self, [src], [dst])
+
+    def evict_cached_prefixes(self, blocks_needed: int,
+                              protect: Iterable[bytes] = ()) -> int:
+        """LRU-evict interned pages at refcount == 0 until ``blocks_needed``
+        slots are free. Pages still referenced (refcount > 0) are never
+        touched; ``protect`` shields keys about to be attached."""
+        if not self.prefix_cache:
+            return 0
+        protect = set(protect)
+        victims = sorted((e for e in self.prefix_index.values()
+                          if e.refcount == 0 and e.key not in protect),
+                         key=lambda e: e.lru)
+        freed = 0
+        for entry in victims:
+            if self.n_free >= blocks_needed:
+                break
+            self._evict_prefix_entry(entry)
+            freed += 1
+        return freed
+
+    def _evict_prefix_entry(self, entry: PrefixPage):
+        assert entry.refcount == 0, "evicting a referenced prefix page"
+        del self.prefix_index[entry.key]
+        del self._slot_prefix[entry.slot]
+        kids = self._prefix_children.get(entry.parent)
+        if kids is not None:
+            kids.remove(entry.key)
+            if not kids:
+                del self._prefix_children[entry.parent]
+        self._free.append(entry.slot)
+        self.prefix_evicted_pages += 1
+
+    def host_shared_block(self, peer: int, rid: int, src_entry: PrefixPage,
+                          logical_idx: int):
+        """Host one SHARED page of a peer's request: if a page with the
+        same chain key is already interned here (shipped earlier for
+        another request, or produced by this pool's own traffic), reference
+        it — zero bytes on the wire. Otherwise intern a fresh slot the
+        caller must copy into. Returns (replica BlockRef, needs_copy) or
+        None when there is no headroom."""
+        entry = self.prefix_index.get(src_entry.key)
+        needs_copy = False
+        if entry is None:
+            if not self._free:
+                self.evict_cached_prefixes(1)
+            if not self._free:
+                return None
+            slot = self._free.pop()
+            entry = PrefixPage(src_entry.key, src_entry.parent,
+                               src_entry.tokens, slot, src_entry.logical_idx,
+                               refcount=0, lru=self._tick())
+            self.prefix_index[entry.key] = entry
+            self._slot_prefix[slot] = entry.key
+            self._prefix_children.setdefault(entry.parent, []).append(entry.key)
+            self.prefix_hosted_pages += 1
+            needs_copy = True
+        entry.refcount += 1
+        entry.lru = self._tick()
+        ref = BlockRef(rid, logical_idx, entry.slot, n_filled=self.page_size)
+        self._replica_tables.setdefault((peer, rid), []).append(ref)
+        return ref, needs_copy
 
     # -- real-buffer block IO (bit-exact data movement) -----------------------
     def _index(self, slots) -> torch.Tensor:

@@ -11,8 +11,11 @@ versioned fault-injection admin API (``POST /v1/admin/fault`` /
 The model runs at the config's full size on the card (``--device cuda``,
 the default); ``--device cpu --reduced`` serves the reduced config on the
 CPU. ``--kv-quant`` serves from an int8 KV pool and ``--prefill-chunk N``
-runs prompts in chunks of N tokens interleaved with decode steps; either
-works alone or with the other.
+runs prompts in chunks of N tokens interleaved with decode steps.
+``--prefix-cache`` shares fully-covered prompt pages between requests by
+reference, and ``--disaggregate`` splits the instances into prefill and
+decode roles (chunked prefill, 8 tokens a chunk unless ``--prefill-chunk``
+says otherwise). The flags combine freely.
 """
 from __future__ import annotations
 
@@ -145,7 +148,7 @@ class EngineService:
                     active=len(i.requests),
                     queued=len(eng.queues[i.instance_id]),
                     prefilling=i.prefill_depth(),
-                    handoffs_ready=0,
+                    handoffs_ready=len(i.ready_handoffs),
                     pool_used_blocks=i.pool.n_used,
                     pool_replica_blocks=i.pool.replica_blocks_used(),
                     degradation=DegradationState(
@@ -172,8 +175,10 @@ class EngineService:
                 eng = self.engine
                 unfinished = eng.queue_depth() + \
                     sum(len(i.requests) for i in eng.instances)
+                parked = len(eng._handoffs)
             print(f"shutdown: drain timed out after {drain_timeout:.0f}s — "
-                  f"{unfinished} request(s) unfinished")
+                  f"{unfinished} request(s) unfinished, "
+                  f"{parked} handoff(s) parked")
         self._stop = True
         self._thread.join(timeout=10)
 
@@ -334,6 +339,15 @@ def main():
                     help="chunked prefill: run prompts through the pool in "
                          "chunks of this many tokens, interleaved with "
                          "decode steps (0 = monolithic prefill)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="intern fully-covered prompt pages in a refcounted "
+                         "prefix index; shared prefixes attach by reference "
+                         "(copy-on-write) and skip prefill compute")
+    ap.add_argument("--disaggregate", action="store_true",
+                    help="prefill/decode disaggregation: the first half of "
+                         "the instances run chunked prefill only and stream "
+                         "finished KV pages to decode-role peers (implies "
+                         "--prefill-chunk; defaults it to 8 if unset)")
     ap.add_argument("--recovery", default="kevlarflow",
                     choices=["kevlarflow", "standard"],
                     help="fail_instance policy: promote replicas + reroute "
@@ -352,8 +366,12 @@ def main():
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.disaggregate and args.prefill_chunk <= 0:
+        args.prefill_chunk = 8      # streaming needs chunked prefill
     ecfg = EngineConfig(kv_quant=args.kv_quant,
                         prefill_chunk=args.prefill_chunk,
+                        prefix_cache=args.prefix_cache,
+                        disaggregate=args.disaggregate,
                         recovery=args.recovery,
                         auto_rejoin=args.auto_rejoin,
                         rejoin_delay=args.rejoin_delay,
@@ -365,7 +383,9 @@ def main():
     print(f"KevlarFlow serving {cfg.name} on :{httpd.server_address[1]} "
           f"({args.instances} instances, {args.recovery} recovery, "
           f"{args.device}, {'int8' if args.kv_quant else 'bf16'} KV pool, "
-          f"prefill chunk {args.prefill_chunk or 'off'}). "
+          f"prefill chunk {args.prefill_chunk or 'off'}, prefix cache "
+          f"{'on' if args.prefix_cache else 'off'}, "
+          f"{'disaggregated' if args.disaggregate else 'colocated'}). "
           f"POST /v1/completions")
     try:
         httpd.serve_forever()

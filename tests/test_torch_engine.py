@@ -247,9 +247,18 @@ def test_fail_instance_idempotent(cfg):
 
 
 def test_unported_knobs_raise(cfg):
-    for kw in (dict(prefix_cache=True), dict(disaggregate=True)):
-        with pytest.raises(NotImplementedError):
-            _engine(cfg, **kw)
+    """Every EngineConfig knob is ported; what the engine still refuses is
+    a family other than the dense one (the SSM family is served through
+    the model API, as in the reference)."""
+    ssm_cfg = get_config("mamba2-130m").reduced()
+    for kw in ({}, dict(prefix_cache=True, disaggregate=True,
+                        prefill_chunk=8)):
+        with pytest.raises(NotImplementedError, match="ssm"):
+            _engine(ssm_cfg, **kw)
+    for kw in (dict(prefix_cache=True), dict(disaggregate=True,
+                                             prefill_chunk=8)):
+        assert _engine(cfg, **kw).ecfg == EngineConfig(max_slots=8,
+                                                       max_seq=96, **kw)
 
 
 def test_windowed_serving_matches_reference_and_fails_over(cfg):

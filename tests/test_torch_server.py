@@ -1,7 +1,7 @@
 """The port's HTTP server, started from its command line on the CPU
 (``--device cpu --reduced``, ephemeral port): completion round-trip, the
-typed /health schema, and an instance kill through /v1/admin/fault under
-live traffic."""
+typed /health schema, an instance kill through /v1/admin/fault under live
+traffic, and the prefix-cache and disaggregated services."""
 import json
 import os
 import re
@@ -57,6 +57,18 @@ def base_url():
 def int8_url():
     """The int8 pool with chunked prefill (chunks of 8 tokens)."""
     yield from _server("--kv-quant", "--prefill-chunk", "8")
+
+
+@pytest.fixture(scope="module")
+def prefix_url():
+    """The bf16 pool with the prefix cache (monolithic prefill)."""
+    yield from _server("--prefix-cache")
+
+
+@pytest.fixture(scope="module")
+def disagg_url():
+    """Prefill/decode roles; the chunk size defaults to 8."""
+    yield from _server("--disaggregate")
 
 
 def _post(url, payload):
@@ -200,3 +212,63 @@ def test_shard_fault_is_a_conflict_until_ported(base_url):
         _post(base_url + "/v1/admin/fault",
               {"granularity": "shard", "instance_id": 1, "shard_idx": 0})
     assert ei.value.code == 409
+
+
+def _shared_prefix_prompts():
+    rng = np.random.default_rng(4)
+    shared = rng.integers(1, VOCAB, 24).tolist()       # three full pages
+    return [shared + [7, 8, 9], shared + [10, 11], shared[:20] + [12, 13]]
+
+
+def test_prefix_cache_server_equals_cold_serving(prefix_url, base_url):
+    """--prefix-cache: requests sharing a 24-token prefix hit the cache
+    (one diverges inside page 2: a copy-on-write), /health's prefix section
+    shows it, and every stream equals the server without the cache."""
+    prompts = _shared_prefix_prompts()
+    cold = [_post(base_url + "/v1/completions",
+                  {"prompt_tokens": p, "max_tokens": 6})
+            for p in prompts]
+    warm = [_post(prefix_url + "/v1/completions",
+                  {"prompt_tokens": p, "max_tokens": 6})
+            for p in prompts]
+    assert [r["choices"][0]["token_ids"] for r in warm] == \
+        [r["choices"][0]["token_ids"] for r in cold]
+    h = _health(prefix_url)
+    assert HealthResponse.from_json(h).to_json() == h
+    prefix = h["prefix"]
+    assert prefix["enabled"] and not h["disagg"]["enabled"]
+    assert prefix["prefix_cached_tokens"] >= 24 + 16
+    assert prefix["cow_copies"] >= 1
+    # monolithic prefill computes every prompt token
+    assert prefix["prefill_compute_tokens"] == prefix["prefill_total_tokens"]
+    assert prefix["shared_page_ship_ratio"] <= 1.0
+    assert not _health(base_url)["prefix"]["enabled"]
+
+
+def test_disaggregated_server_roles_and_handoffs(disagg_url, base_url):
+    """--disaggregate: instance 0 prefills, instance 1 decodes; every
+    request is handed off (one bf16 block per handoff message page), the
+    per-instance handoffs_ready field is there, and the streams equal the
+    colocated server's."""
+    prompts = _shared_prefix_prompts()
+    colo = [_post(base_url + "/v1/completions",
+                  {"prompt_tokens": p, "max_tokens": 6})
+            for p in prompts]
+    dis = [_post(disagg_url + "/v1/completions",
+                 {"prompt_tokens": p, "max_tokens": 6})
+           for p in prompts]
+    assert [r["choices"][0]["token_ids"] for r in dis] == \
+        [r["choices"][0]["token_ids"] for r in colo]
+    h = _health(disagg_url)
+    assert HealthResponse.from_json(h).to_json() == h
+    assert [i["role"] for i in h["instances"]] == ["prefill", "decode"]
+    assert all(i["handoffs_ready"] == 0 for i in h["instances"])
+    d = h["disagg"]
+    assert d["enabled"] and d["roles"] == {"0": "prefill", "1": "decode"}
+    assert d["handoffs_seated"] == len(prompts)
+    assert d["handoffs_in_flight"] == 0
+    # reduced llama3-8b bf16 block: 2 layers x 2 KV heads x page 8 x D 64
+    assert d["handoff_blocks_total"] >= 3 * len(prompts)
+    assert d["handoff_bytes_total"] == d["handoff_blocks_total"] * (
+        2 * 2 * 2 * 8 * 64 * 2)
+    assert h["topology"]["roles"] == {"0": "prefill", "1": "decode"}

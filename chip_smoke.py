@@ -28,7 +28,15 @@ Phases (each raises, and the script exits non-zero, if its check fails):
                 (q in bf16 and f32, all shapes, one all-zero row with
                 scale 1), and quantize_pages on the card against the CPU,
                 bit for bit.
-  5. kernel (ssd_scan) — the SSD scan kernels (the C·Bᵀ pass, then the
+  5. kernel (head geometries) — both attention kernels at the decode head
+                geometries of the dense configs: yi-9b (H 32, K 4, D 128) and
+                deepseek-67b (H 64, K 8, D 128), rep 8, the 8-head tile;
+                qwen1.5-0.5b (H 16, K 16, D 64) and qwen1.5-32b (H 40, K 40,
+                D 128), rep 1; B 8, page 16, lengths up to 256 and 4096,
+                q bf16 and f32, with and without window starts, against the
+                plain versions; then each geometry, and llama3-8b's (rep 4,
+                for comparison), timed in a CUDA graph with bound and share.
+  6. kernel (ssd_scan) — the SSD scan kernels (the C·Bᵀ pass, then the
                 scan) against the plain sequential version and the plain
                 chunked form, at the full-width mamba2-130m shape (b 8,
                 s 512, h 24, p 64, n 128, chunk 256; B and C bf16, then
@@ -42,28 +50,28 @@ Phases (each raises, and the script exits non-zero, if its check fails):
                 recurrence; times kernel and plain versions in a CUDA graph
                 with the grid size, and both bounds (f32 CUDA cores, tensor
                 cores) with the share of each.
-  6. serving  — the port's HTTP server with full-width Llama-3.1-8B (random
+  7. serving  — the port's HTTP server with full-width Llama-3.1-8B (random
                 weights from a seeded torch.Generator), 2 instances, ring
                 replication on; concurrent completions, greedy determinism,
                 TTFT / per-token latency / tokens per second.
-  7. failover — the same prompts again; an instance kill through
+  8. failover — the same prompts again; an instance kill through
                 /v1/admin/fault while they decode; every stream must equal
                 the failure-free one, with at least one migration.
-  8. decode profile — one instance's decode step called directly: wall
+  9. decode profile — one instance's decode step called directly: wall
                 time, device-busy time and op count (torch.profiler).
-  9.-11. serving, failover and decode profile again on a second service
+  10.-12. serving, failover and decode profile again on a second service
                 built from the SAME weights with the int8 KV pool and
                 chunked prefill (chunks of 64); the kill may restart only
                 requests caught mid-prefill on the victim.
-  12. cold reference — a shared-prefix prompt set (a 128-token prefix, 8
+  13. cold reference — a shared-prefix prompt set (a 128-token prefix, 8
                 pages, with distinct tails; every prompt 129-256 tokens, one
                 prefill bucket; one diverges inside page 7, one repeats
                 another) served on the same weights with the prefix cache
                 off, chunks of 64: one primer, then 8 requests concurrently
                 (the 8th a 120-token prefix of the prefix, bucket 128), then
-                4 drill prompts. Its streams are what phases 13-14 must
+                4 drill prompts. Its streams are what phases 14-15 must
                 give; TTFTs for information.
-  13. prefix cache — the same traffic with prefix_cache=True: every stream
+  14. prefix cache — the same traffic with prefix_cache=True: every stream
                 equal to cold; hits, skipped prompt compute, copy-on-write,
                 each shared page shipped once per ring target that lacked
                 it (copies == hosted pages, ship ratio <= 1); the
@@ -71,7 +79,7 @@ Phases (each raises, and the script exits non-zero, if its check fails):
                 not asserted; then a kill of the busier instance (if_busy)
                 with the batch in flight: streams equal cold, the survivor
                 still resolves the 8-page chain.
-  14. disaggregated — disaggregate=True with the prefix cache on: instance
+  15. disaggregated — disaggregate=True with the prefix cache on: instance
                 0 prefills, instance 1 decodes; streams equal cold,
                 2,097,152 B per handoff block, one seat per request, no
                 decode step (so no attention kernel) on the prefill side;
@@ -81,7 +89,34 @@ Phases (each raises, and the script exits non-zero, if its check fails):
                 and, after it rejoins, the decode instance killed while it
                 decodes and handoffs stream to it (victims migrate, the
                 handoffs seat on the survivor): streams equal cold.
-  15. mamba2 generation — full-width mamba2-130m (bf16, random weights from
+  16. fleet   — the same weights served by 8 instances (4 slots of 256
+                tokens, 4 shards each, rendezvous placement, warm spares 3 s
+                after a kill): 24 concurrent prompts of 16-200 tokens, 32
+                greedy tokens each, failure-free — the reference streams.
+  17. fleet chaos — the 24 again; instances 0, 1 and 2 killed together
+                through /v1/admin/fault while they decode; once instance 0's
+                spare rejoins, a second wave of 8 prompts, and instance 0
+                killed again as soon as it decodes one. Every stream equals
+                failure-free serving, no request is dropped, at least one
+                victim resumes from its replica, and the fleet heals (8
+                alive, epoch +8, an empty plan); MTTR per event and the
+                wall time of each warm-spare rejoin printed.
+  18. shard degraded — 25 prompts, the engine stepped by hand until an
+                instance holds 4 decoding, replicated requests; shard 1 of
+                it lost through /v1/admin/fault: /health shows it DEGRADED
+                (lost_shards [1], slot_cap 3, the layout over 3 shards), the
+                excess request migrates, it never seats more than 3; a shard
+                recover restores it HEALTHY at full capacity; every stream
+                equals failure-free serving. Then one cold init_params +
+                executor build of Llama-3.1-8B, timed, for comparison.
+  19. dense configs — after freeing Llama's weights: yi-9b (48 layers),
+                qwen1.5-0.5b (24), qwen1.5-32b (32 of its 64 layers, int8
+                pool) and deepseek-67b (24 of its 95 layers), full width,
+                random weights: served twice (equal streams), an instance
+                kill (streams equal failure-free), the replication block
+                bytes checked, TTFT / latency / tokens per second, and a
+                decode-step profile.
+  20. mamba2 generation — full-width mamba2-130m (bf16, random weights from
                 torch.Generator seed 0) through api.prefill and
                 api.decode_step: 8 prompts of 512 tokens (2 chunks), then 8
                 of 200 (one ragged chunk), 64 greedy tokens each, twice:
@@ -90,8 +125,8 @@ Phases (each raises, and the script exits non-zero, if its check fails):
                 kernel prefill against the plain chunked form, and forward
                 at t against prefill(:t) plus one decode step; prefill and
                 decode-step profiles.
-  16. summary — one JSON line of kernels, the card line, and the final
-                {"ok": true, "device": ...} line.
+  21. summary — the head-geometry timings, one JSON line of kernels, the
+                card line, and the final {"ok": true, "device": ...} line.
 
 Each path's kernel launch counts are set to 0 just before the path and read
 just after; launches made to compare a kernel with its plain version are
@@ -104,6 +139,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -127,9 +163,11 @@ from repro_torch.kernels import ref as REF  # noqa: E402
 from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.kernels.ref import (paged_attention_int8_ref,  # noqa: E402
                                      paged_attention_ref, ssd_scan_ref)
-from repro_torch.models import api, ssm  # noqa: E402
+from repro_torch.models import api, ssm, transformer  # noqa: E402
 from repro_torch.models import paged_decode as PD  # noqa: E402
-from repro_torch.serving.engine import EngineConfig  # noqa: E402
+from repro_torch.serving.engine import (EngineConfig,  # noqa: E402
+                                        FamilyExecutor)
+from repro_torch.serving.request import RequestState  # noqa: E402
 from repro_torch.serving.server import serve  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM, NVIDIA data sheet
@@ -137,7 +175,6 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,         # dense tensor-core bf16
               torch.float32: 67e12}           # f32 outside the tensor cores
 TF32_PEAK = 495e12                            # dense tensor-core TF32
 TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-5}
-LAYERS_PER_STEP = 32                          # one launch per layer per step
 SERVE_SHAPE = (8, 32, 8, 128, 16, 16, 257)    # B, H, K, D, page, pps, P
 LONG_SHAPE = (8, 32, 8, 128, 16, 256, 2049)   # every length 4096 when timed
 REDUCED_SHAPE = (4, 4, 2, 64, 8, 32, 129)
@@ -548,7 +585,107 @@ def kernel_int8_phase() -> dict:
             "bound_ms": bms, "bound_by": by, "library_ms": None}
 
 
-# -- 5. kernel (ssd_scan) ------------------------------------------------------
+# -- 5. kernel (head geometries) ----------------------------------------------
+
+# the dense configs' decode head geometries; llama3-8b's (rep 4, the 4-head
+# tile) is timed beside the rep-8 ones (yi-9b, deepseek-67b: the 8-head
+# tile, which ptxas says spills), the rep-1 ones are qwen's MHA
+GEOMETRY_CONFIGS = ("llama3-8b", "yi-9b", "deepseek-67b", "qwen1.5-0.5b",
+                    "qwen1.5-32b")
+
+
+def geometry_shapes(cfg) -> dict:
+    """Length -> shape at ``cfg``'s head geometry: B 8, page 16, 16 pages
+    (every length 256 when timed) and 256 pages (4096)."""
+    h, k, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {256: (8, h, k, d, 16, 16, 257), 4096: (8, h, k, d, 16, 256, 2049)}
+
+
+def rotating_sets(make, shape, itemsize) -> list:
+    """Input sets whose live K/V together exceed the 50 MB L2 (each
+    sequence at full length), at most 16."""
+    b, _, kheads, d, page, pps, _ = shape
+    live = 2 * b * pps * page * kheads * d * itemsize
+    return [make(300 + j) for j in range(min(16, math.ceil(64e6 / live)))]
+
+
+def geometry_phase(card: str) -> list:
+    """Both attention kernels at the dense configs' head geometries: held
+    against their plain versions (q bf16 and f32, with and without window
+    starts, at both lengths; llama3-8b's geometry is the kernel phases'),
+    then timed in a CUDA graph with bound and share. Returns the timing
+    rows."""
+    max_err = 0.0
+    rows = []
+    for name in GEOMETRY_CONFIGS:
+        cfg = get_config(name)
+        for length, shape in geometry_shapes(cfg).items():
+            label = f"{name} (H {cfg.n_heads}, K {cfg.n_kv_heads}, D " \
+                f"{cfg.head_dim}, rep {cfg.q_per_kv}) length {length}"
+            if name != "llama3-8b":
+                for dtype in (torch.bfloat16, torch.float32):
+                    q, kp, vp, bt, ln, st = kernel_case(*shape, dtype=dtype,
+                                                        seed=400)
+                    for starts in (None, st):
+                        max_err = max(max_err, check_against_plain(
+                            f"{label} kernel check {dtype}",
+                            PA.paged_attention, paged_attention_ref,
+                            (q, kp, vp, bt, ln), starts, dtype))
+                    args, _ = int8_case(shape, dtype, seed=401)
+                    for starts in (None, args[-1]):
+                        max_err = max(max_err, check_against_plain(
+                            f"{label} int8 kernel check q {dtype}",
+                            PA8.paged_attention_int8,
+                            paged_attention_int8_ref, args[:-1], starts,
+                            dtype))
+                    del q, kp, vp, args
+            bf16_sets = rotating_sets(
+                lambda seed: kernel_case(*shape, dtype=torch.bfloat16,
+                                         seed=seed, full=True)[:5],
+                shape, 2)
+            int8_sets = rotating_sets(
+                lambda seed: int8_case(shape, torch.bfloat16, seed=seed,
+                                       full=True)[0][:7], shape, 1)
+            for kernel, fn, plain, sets, bound in (
+                    (PA, PA.paged_attention, paged_attention_ref, bf16_sets,
+                     lambda s: bound_ms(s[0], s[1], s[4], None)),
+                    (PA8, PA8.paged_attention_int8, paged_attention_int8_ref,
+                     int8_sets,
+                     lambda s: bound_ms(s[0], s[1], s[6], None,
+                                        scales=s[2]))):
+                ms = graph_ms(fn, sets)
+                plain_ms = graph_ms(plain, sets[:1], reps=5)
+                bms, by = bound(sets[0])
+                row = {"config": name, "rep": cfg.q_per_kv,
+                       "H": cfg.n_heads, "K": cfg.n_kv_heads,
+                       "D": cfg.head_dim, "length": length,
+                       "kernel": kname(kernel), "us": ms * 1e3,
+                       "plain_us": plain_ms * 1e3, "bound_us": bms * 1e3,
+                       "bound_by": by, "share": bms / ms,
+                       "input_sets": len(sets)}
+                rows.append(row)
+                print(f"{label} {kname(kernel)} [{card}]: device time (CUDA "
+                      f"graph) {ms * 1e3:.2f} us over {len(sets)} rotating "
+                      f"sets; "
+                      f"plain {plain_ms * 1e3:.2f} us; bound "
+                      f"{bms * 1e3:.2f} us ({by}); share of the bound "
+                      f"{bms / ms:.3f}")
+            del bf16_sets, int8_sets
+        torch.cuda.empty_cache()
+    print(f"head-geometry checks: largest max_abs_err {max_err:.3e}")
+    share = {(r["config"], r["kernel"], r["length"]): r["share"]
+             for r in rows}
+    for kernel in ("paged_attention", "paged_attention_int8"):
+        for length in (256, 4096):
+            print(f"{kernel} share of the bound at length {length} [{card}]: "
+                  f"8-head tile yi-9b {share['yi-9b', kernel, length]:.3f}, "
+                  f"deepseek-67b {share['deepseek-67b', kernel, length]:.3f}"
+                  f"; 4-head tile llama3-8b "
+                  f"{share['llama3-8b', kernel, length]:.3f}")
+    return rows
+
+
+# -- 6. kernel (ssd_scan) -----------------------------------------------------
 
 def ssd_case(shape, bc_dtype, seed, with_h0=False, odd_rows=False):
     """Scan inputs on the card at the reference sweep's scales (x * 0.5,
@@ -750,7 +887,7 @@ def ssd_scan_phase() -> dict:
             "bound_cuda_cores_ms": cms, "grid_blocks": grid}
 
 
-# -- 6.-11. serving, failover and decode profile, per pool ---------------------
+# -- 7.-12. serving, failover and decode profile, per pool --------------------
 
 class Client:
     def __init__(self, port: int):
@@ -838,7 +975,8 @@ def decode_profile(engine, card: str, kernel):
         step()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / n
-    check(kernel.launches == n * LAYERS_PER_STEP * launches_per_call(width),
+    layers = engine.cfg.n_layers             # one call per layer per step
+    check(kernel.launches == n * layers * launches_per_call(width),
           f"decode profile: {kernel.launches} {kname(kernel)} launches")
     per_step = kernel.launches / n
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -881,19 +1019,20 @@ def block_bytes(cfg, quantized: bool) -> int:
     return rows * (cfg.head_dim + 2) if quantized else rows * cfg.head_dim * 2
 
 
-def counted(label, what, fn, kernel, idle):
+def counted(label, what, fn, kernel, idle, n_layers):
     """Run ``fn`` with both attention kernels' launch counts set to 0 just
     before and read just after; check the run went through ``kernel`` (a
-    positive multiple of 32 launches) and never through ``idle``. Returns
-    (fn's result, ``kernel``'s launches)."""
+    positive multiple of ``n_layers`` launches: one call per layer per
+    decode step) and never through ``idle``. Returns (fn's result,
+    ``kernel``'s launches)."""
     kernel.launches = idle.launches = 0
     out = fn()
     n, other = kernel.launches, idle.launches
     print(f"[{label}] {kname(kernel)} launches in {what}: {n}; "
           f"{kname(idle)}: {other}")
-    check(n > 0 and n % LAYERS_PER_STEP == 0,
+    check(n > 0 and n % n_layers == 0,
           f"{what} launch count {n} is not a positive multiple of "
-          f"{LAYERS_PER_STEP}")
+          f"{n_layers}")
     check(other == 0, f"{what} launched {kname(idle)} {other} times")
     return out, n
 
@@ -926,12 +1065,15 @@ def http_kill_drill(client, prompts, max_tokens, label):
     return join(threads, out, errs), victim, prefilling
 
 
-def run_path(card, cfg, ecfg, kernel, idle, label, prompts, params=None):
+def run_path(card, cfg, ecfg, kernel, idle, label, prompts, params=None,
+             repeat=False):
     """One serving path end to end: start the HTTP service (on ``params``
-    when given), warm it up, then serving, failover and decode profile.
-    ``kernel`` is the wrapper module the path must launch (a positive
-    multiple of 32 launches), ``idle`` the one it must not launch. Returns
-    (launches on the serving and failover phases, the engine's params)."""
+    when given), warm it up, then serving (twice with ``repeat``: the
+    second run's streams must equal the first's), failover and decode
+    profile. ``kernel`` is the wrapper module the path must launch (a
+    positive multiple of ``cfg.n_layers`` launches), ``idle`` the one it
+    must not launch. Returns (launches on the serving and failover phases,
+    the engine's params)."""
     t0 = time.perf_counter()
     svc, httpd = serve(cfg, ecfg, n_instances=2, port=0, device="cuda",
                        params=params)
@@ -955,10 +1097,10 @@ def run_path(card, cfg, ecfg, kernel, idle, label, prompts, params=None):
         t0 = time.perf_counter()
         resps, n = counted(label, "serving",
                            lambda: join(*client.completions(prompts, 32)),
-                           kernel, idle)
+                           kernel, idle, cfg.n_layers)
         launches += n
         wall = time.perf_counter() - t0
-        steps = [w for _, w in svc.engine.step_samples[n_samples:]]
+        steps = [s[1] for s in svc.engine.step_samples[n_samples:]]
         streams = [r["choices"][0]["token_ids"] for r in resps]
         vocab = cfg.vocab_size
         check(all(len(s) == 32 and all(0 <= t < vocab for t in s)
@@ -977,12 +1119,22 @@ def run_path(card, cfg, ecfg, kernel, idle, label, prompts, params=None):
         m["engine_step_s_median"] = statistics.median(steps)
         m["replicated_bytes_per_block"] = per_block
         print(f"serving [{label}] [{card}]: " + json.dumps(m))
+        if repeat:
+            again, n = counted(
+                label, "serving again",
+                lambda: join(*client.completions(prompts, 32)), kernel,
+                idle, cfg.n_layers)
+            launches += n
+            check(tokens_of(again) == streams,
+                  "greedy streams differ between two failure-free runs")
+            print(f"[{label}] second failure-free run: all {len(again)} "
+                  "streams equal the first")
 
         phase(f"failover ({label})")
         (resps2, victim, prefilling), n = counted(
             label, "failover",
             lambda: http_kill_drill(client, prompts, 32, label),
-            kernel, idle)
+            kernel, idle, cfg.n_layers)
         launches += n
         migrations = [r["kevlarflow"]["migrations"] for r in resps2]
         retries = [r["kevlarflow"]["retries"] for r in resps2]
@@ -1023,7 +1175,7 @@ def run_path(card, cfg, ecfg, kernel, idle, label, prompts, params=None):
     return launches, svc.engine.params
 
 
-# -- 12.-14. cold reference, prefix cache, disaggregation -----------------------
+# -- 13.-15. cold reference, prefix cache, disaggregation ---------------------
 
 SHARED_PAGES = 8        # the shared system prompt: 8 pages (128 tokens)
 NEW_TOKENS = 32
@@ -1071,11 +1223,11 @@ def prefix_ecfg(cfg, **kw) -> EngineConfig:
 
 
 @contextlib.contextmanager
-def http_service(cfg, ecfg, params):
-    """The port's HTTP service on the given weights, 2 instances, stopped
-    (server thread and engine loop) on exit."""
-    svc, httpd = serve(cfg, ecfg, n_instances=2, port=0, device="cuda",
-                       params=params)
+def http_service(cfg, ecfg, params, n_instances=2):
+    """The port's HTTP service on the given weights, stopped (server thread
+    and engine loop) on exit."""
+    svc, httpd = serve(cfg, ecfg, n_instances=n_instances, port=0,
+                       device="cuda", params=params)
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
     try:
@@ -1123,7 +1275,7 @@ def cold_reference(card, cfg, params, ps):
                                                             NEW_TOKENS))
     with http_service(cfg, prefix_ecfg(cfg), params) as (_, client):
         (first, resps, wall, drill), n = counted(label, "serving", run, PA,
-                                                 PA8)
+                                                 PA8, cfg.n_layers)
     prompts = [ps.primer] + ps.batch + [ps.xbucket] + ps.drill
     streams = tokens_of([first] + resps + drill)
     check(all(len(t) == NEW_TOKENS for t in streams), "cold stream length")
@@ -1226,7 +1378,8 @@ def prefix_path(card, cfg, params, ps, cold):
                   f"serving ({retries} restarted); the survivor's index "
                   f"resolves the {SHARED_PAGES}-page chain")
             return m
-        m, n = counted(label, "serving and failover", run, PA, PA8)
+        m, n = counted(label, "serving and failover", run, PA, PA8,
+                       cfg.n_layers)
     return m, n
 
 
@@ -1262,12 +1415,12 @@ def loop_paused(svc):
             del eng.has_pending, eng.recovery_pending
 
 
-def kill_when(svc, start, n_submitted, cond, victim, label):
+def kill_when(svc, start, n_submitted, cond, kill, label):
     """With the service loop paused: ``start()`` the requests, wait until
     the service holds ``n_submitted``, step the engine by hand until
-    ``cond(engine)`` holds and kill ``victim`` right there — the state the
-    drill needs, whatever the timing. Returns (start()'s result, the
-    resumed rids)."""
+    ``cond(engine)`` holds and call ``kill()`` right there (the loop still
+    paused, the lock free for it) — the state the drill needs, whatever the
+    timing. Returns (start()'s result, what ``kill()`` returned)."""
     deadline = time.time() + 300
     with loop_paused(svc):
         started = start()
@@ -1283,7 +1436,7 @@ def kill_when(svc, start, n_submitted, cond, victim, label):
                 check(type(eng).has_pending(eng) and time.time() < deadline,
                       f"[{label}] the kill condition never held")
                 eng.step()
-            resumed = eng.fail_instance(victim)
+        resumed = kill()
     return started, resumed
 
 
@@ -1340,7 +1493,8 @@ def disagg_path(card, cfg, params, ps, cold):
                 base = svc._next_rid
             threads, _ = kill_when(
                 svc, lambda: client.completions(ps.drill, NEW_TOKENS),
-                base + len(ps.drill), mid_stream, 0, label)
+                base + len(ps.drill), mid_stream,
+                lambda: svc.fail_instance(0), label)
             resps2 = join(*threads)
             h = client.health()
             event = h["failure_events"][-1]
@@ -1373,7 +1527,8 @@ def disagg_path(card, cfg, params, ps, cold):
                 svc, lambda: client.completions(wave_b, NEW_TOKENS),
                 base + len(ps.batch),
                 lambda e: any(rec["dst"] == 1
-                              for rec in e._handoffs.values()), 1, label)
+                              for rec in e._handoffs.values()),
+                lambda: svc.fail_instance(1), label)
             resps3 = join(*threads_a) + join(*threads_b)
             h = client.health()
             print(f"[{label}] decode instance killed with handoffs in "
@@ -1388,7 +1543,8 @@ def disagg_path(card, cfg, params, ps, cold):
             print(f"failover [{label}] [{card}]: both kills byte-identical "
                   "to cold serving")
             return m
-        m, n = counted(label, "serving and both failovers", run, PA, PA8)
+        m, n = counted(label, "serving and both failovers", run, PA, PA8,
+                       cfg.n_layers)
     return m, n
 
 
@@ -1421,15 +1577,355 @@ def shared_prefix_phases(card, cfg, params) -> int:
     return n_cold + n_pre + n_dis
 
 
+# -- 16.-18. fleet, fleet chaos, shard degraded -------------------------------
+
+FLEET = 8                 # instances
+FLEET_PROMPTS = 24        # concurrent prompts of 16-200 tokens
+REJOIN_DELAY = 3.0        # seconds until a failed instance's warm spare
+
+
+def fleet_ecfg() -> EngineConfig:
+    """4 slots of 256 tokens an instance (129 pool blocks), 4 shards,
+    rendezvous placement, warm spares after REJOIN_DELAY s."""
+    return EngineConfig(max_slots=4, max_seq=256, n_shards=4,
+                        placement="rendezvous", auto_rejoin=True,
+                        rejoin_delay=REJOIN_DELAY)
+
+
+def wait_health(client, cond, what, timeout=300.0):
+    """Poll /health until ``cond(health)`` holds; returns that health."""
+    deadline = time.time() + timeout
+    while True:
+        h = client.health()
+        if cond(h):
+            return h
+        check(time.time() < deadline, f"timed out waiting for {what}")
+        time.sleep(0.02)
+
+
+def decoding(inst) -> int:
+    return sum(r.state == RequestState.DECODE for r in inst.requests.values())
+
+
+def time_rejoins(eng) -> list:
+    """Wrap the engine's warm-spare rejoin: (instance, wall seconds) per
+    rejoin, the new pool's allocation included (synchronised)."""
+    times = []
+    recover = eng._recover_instance
+
+    def timed(iid):
+        t0 = time.perf_counter()
+        out = recover(iid)
+        torch.cuda.synchronize()
+        times.append((iid, time.perf_counter() - t0))
+        return out
+    eng._recover_instance = timed
+    return times
+
+
+def chaos_drill(card, svc, client, prompts, want) -> dict:
+    """A correlated kill of instances 0, 1 and 2 while the 24 prompts
+    decode (all three faults through /v1/admin/fault with the service loop
+    paused, so they land at one engine time), then, once instance 0's
+    warm spare rejoins, a second wave of 8 prompts and a second kill of
+    instance 0 as soon as it decodes one of them. Every stream must equal
+    failure-free serving; the fleet must heal (8 alive, epoch 8, an empty
+    plan)."""
+    label = "fleet chaos"
+    eng = svc.engine
+    rejoins = time_rejoins(eng)
+    epoch0 = client.health()["topology"]["epoch"]
+    threads, out, errs = client.completions(prompts, NEW_TOKENS)
+    wait_health(client, lambda h: sum(
+        i["active"] for i in h["instances"]) == len(prompts) and all(
+        h["instances"][v]["active"] > 0 for v in (0, 1, 2)),
+        "every prompt seated")
+    with loop_paused(svc):
+        with svc._lock:
+            victims = {v: decoding(eng.instances[v]) for v in (0, 1, 2)}
+        faults = [client.post("/v1/admin/fault",
+                              {"granularity": "instance", "instance_id": v})
+                  for v in (0, 1, 2)]
+    check(all(f["applied"] for f in faults), "a correlated fault not applied")
+    print(f"[{label}] killed instances 0, 1, 2 together (decoding "
+          f"{victims}); seamlessly resumed "
+          f"{[f['seamlessly_resumed'] for f in faults]}")
+    wait_health(client, lambda h: any(
+        e["instance"] == 0 and e["t_rejoin"] >= 0
+        for e in h["failure_events"]), "instance 0's warm spare")
+    wave2 = prompts[:8]
+    with svc._lock:
+        base = svc._next_rid
+
+    def kill0():
+        return client.post("/v1/admin/fault",
+                           {"granularity": "instance", "instance_id": 0,
+                            "if_busy": True})
+    (threads2, out2, errs2), fault = kill_when(
+        svc, lambda: client.completions(wave2, NEW_TOKENS),
+        base + len(wave2), lambda e: decoding(e.instances[0]) > 0, kill0,
+        label)
+    check(fault["applied"], "the second kill found instance 0 idle")
+    resps = join(threads, out, errs)
+    resps2 = join(threads2, out2, errs2)
+    h = wait_health(client, lambda h: all(
+        i["alive"] for i in h["instances"])
+        and not h["topology"]["planner"]["plan"], "the fleet to heal")
+    events = h["failure_events"]
+    second = events[-1]
+    print(f"[{label}] second kill of instance 0 (its spare, decoding wave "
+          f"2): {json.dumps(second)}")
+    check(second["instance"] == 0 and second["n_victims"] >= 1,
+          "the second kill landed on no in-flight work")
+    check(tokens_of(resps) == [want[tuple(p)] for p in prompts]
+          and tokens_of(resps2) == [want[tuple(p)] for p in wave2],
+          "a stream differs from failure-free serving")
+    epoch = h["topology"]["epoch"] - epoch0
+    mttr = [round(e["mttr"], 4) for e in events]
+    resumed = sum(e["resumed"] for e in events)
+    restarted = sum(e["restarted"] for e in events)
+    check(len(events) == 4 and all(e["mttr"] >= 0 for e in events),
+          "four closed failure events")
+    check(epoch == 8, f"epoch moved by {epoch}, not 8")
+    check(resumed >= 1, "no victim resumed from its replica")
+    retries = [r["kevlarflow"]["retries"] for r in resps + resps2]
+    migrations = [r["kevlarflow"]["migrations"] for r in resps + resps2]
+    m = {"instances": FLEET, "requests": len(resps) + len(resps2),
+         "mttr_s_per_event": mttr,
+         "rejoin_wall_s": [round(t, 4) for _, t in rejoins],
+         "rejoined_instances": [i for i, _ in rejoins],
+         "resumed": resumed, "restarted": restarted,
+         "migrations": sum(migrations), "retries": sum(retries),
+         "epoch_delta": epoch}
+    print(f"fleet chaos [{card}]: every stream byte-identical to "
+          "failure-free serving; " + json.dumps(m))
+    return m
+
+
+def shard_drill(card, svc, client, prompts, want, cfg) -> dict:
+    """25 prompts (the 24 and a repeat of the first) with the loop paused
+    and the engine stepped by hand until an instance holds 4 decoding,
+    replicated requests; a shard-1 fault on it through /v1/admin/fault;
+    /health must show it DEGRADED (lost_shards [1], slot_cap 3, the layout
+    of full-width Llama-3.1-8B over 3 shards), the excess request must
+    migrate, and the instance must never seat more than 3 while degraded;
+    a shard recover then restores it HEALTHY at full capacity, and every
+    stream equals failure-free serving."""
+    label = "shard degraded"
+    eng = svc.engine
+    wave = prompts + prompts[:1]
+    with svc._lock:
+        base = svc._next_rid
+    peak = {}
+
+    def full_and_replicated(e):
+        return any(decoding(i) == e.ecfg.max_slots and all(
+            rid in e.replica_meta for rid in i.requests)
+            for i in e.instances)
+
+    def shard_fault():
+        with svc._lock:
+            inst = max(eng.instances, key=lambda i: (decoding(i),
+                                                     -i.instance_id))
+            step = inst.step
+
+            def watched(now, inst=inst, step=step):
+                if inst.lost_shards:
+                    peak[inst.instance_id] = max(
+                        peak.get(inst.instance_id, 0), len(inst.requests))
+                return step(now)
+            inst.step = watched
+        return inst.instance_id, client.post(
+            "/v1/admin/fault", {"granularity": "shard",
+                                "instance_id": inst.instance_id,
+                                "shard_idx": 1})
+    threads, (victim, fault) = kill_when(
+        svc, lambda: client.completions(wave, NEW_TOKENS), base + len(wave),
+        full_and_replicated, shard_fault, label)
+    check(fault["applied"], "shard fault not applied")
+    with loop_paused(svc):
+        h = client.health()
+        deg = h["instances"][victim]["degradation"]
+        event = h["failure_events"][-1]
+        layout = deg["layout"]
+        print(f"[{label}] shard 1 of instance {victim} lost: "
+              f"{json.dumps({k: deg[k] for k in deg if k != 'layout'})}; "
+              f"event {json.dumps(event)}")
+        print(f"[{label}] layout of {cfg.name} over the 3 surviving shards "
+              f"[{card}]: " + json.dumps(layout))
+        check(deg["state"] == "DEGRADED" and deg["lost_shards"] == [1]
+              and deg["slot_cap"] == 3 and deg["capacity_frac"] == 0.75,
+              "health does not show the degradation")
+        check(layout is not None and layout["n_shards"] == 4
+              and layout["surviving"] == 3
+              and layout["params_replicate_fallback"] > 0,
+              "no layout for the degraded instance")
+        check(h["topology"]["states"][str(victim)] == "DEGRADED",
+              "topology state")
+        check(event["granularity"] == "shard" and event["n_victims"] == 1
+              and event["resumed"] + event["restarted"] == 1
+              and h["instances"][victim]["active"] == 3,
+              "not exactly the excess request migrated")
+        with svc._lock:
+            for _ in range(3):          # decode while degraded
+                eng.step()
+        client.post("/v1/admin/recover",
+                    {"granularity": "shard", "instance_id": victim})
+        h = client.health()
+    deg = h["instances"][victim]["degradation"]
+    check(deg["state"] == "HEALTHY" and deg["slot_cap"] == 4
+          and deg["capacity_frac"] == 1.0 and deg["layout"] is None,
+          "the shard recover did not restore full capacity")
+    check(peak.get(victim, 0) <= 3, f"seated {peak.get(victim)} while "
+          "degraded")
+    resps = join(*threads)
+    check(tokens_of(resps) == [want[tuple(p)] for p in wave],
+          "a stream differs from failure-free serving")
+    closed = client.health()["failure_events"][-1]
+    m = {"victim": victim, "slot_cap_degraded": 3,
+         "peak_seated_degraded": peak.get(victim, 0),
+         "excess_resumed": event["resumed"],
+         "excess_restarted": event["restarted"],
+         "shard_mttr_s": closed["mttr"],
+         "param_bytes_per_shard": [layout["param_bytes_per_shard_full"],
+                                   layout["param_bytes_per_shard_degraded"]],
+         "kv_bytes_per_shard": [layout["kv_bytes_per_shard_full"],
+                                layout["kv_bytes_per_shard_degraded"]]}
+    print(f"shard degraded [{card}]: every stream byte-identical to "
+          "failure-free serving; " + json.dumps(m))
+    return m
+
+
+def fleet_phases(card, cfg, params) -> int:
+    """The 8-instance fleet on the given weights: failure-free serving,
+    the chaos drill, the shard drill; then, for comparison with the warm
+    spares' rejoin times, one cold init_params + executor build. Returns
+    the bf16 attention kernel's launches."""
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(16, 201, FLEET_PROMPTS)]
+    ecfg = fleet_ecfg()
+    launches = 0
+    with http_service(cfg, ecfg, params, n_instances=FLEET) as (svc, client):
+        pool = svc.engine.instances[0].pool
+        print(f"fleet: {FLEET} instances of {cfg.name}, each pool "
+              f"{pool.n_blocks} blocks of {pool.block_nbytes} B "
+              f"({pool.n_blocks * pool.block_nbytes / 1e9:.3f} GB); "
+              f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated; "
+              f"prompt lengths {[len(p) for p in prompts]}")
+        phase("fleet (failure-free)")
+        warm = client.post("/v1/completions",
+                           {"prompt_tokens": prompts[0], "max_tokens": 4})
+        check(len(warm["choices"][0]["token_ids"]) == 4, "warm-up")
+        t0 = time.perf_counter()
+        resps, n = counted("fleet", "failure-free serving",
+                           lambda: join(*client.completions(prompts,
+                                                            NEW_TOKENS)),
+                           PA, PA8, cfg.n_layers)
+        launches += n
+        m = serving_metrics(resps, time.perf_counter() - t0)
+        print(f"fleet failure-free [{card}]: " + json.dumps(m))
+        want = {tuple(p): t for p, t in zip(prompts, tokens_of(resps))}
+        check(all(len(t) == NEW_TOKENS for t in want.values()),
+              "stream length")
+        phase("fleet chaos")
+        _, n = counted("fleet chaos", "the drill",
+                       lambda: chaos_drill(card, svc, client, prompts, want),
+                       PA, PA8, cfg.n_layers)
+        launches += n
+        phase("shard degraded")
+        _, n = counted("shard degraded", "the drill",
+                       lambda: shard_drill(card, svc, client, prompts, want,
+                                           cfg),
+                       PA, PA8, cfg.n_layers)
+        launches += n
+    t0 = time.perf_counter()
+    cold = transformer.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    FamilyExecutor(cfg, ecfg)
+    torch.cuda.synchronize()
+    print(f"cold init_params + executor build of {cfg.name} [{card}] (for "
+          f"information, beside the warm-spare rejoins above): "
+          f"{time.perf_counter() - t0:.3f} s")
+    del cold
+    return launches
+
+
+# -- 19. dense configs --------------------------------------------------------
+
+# (config, layers served: None = all) and the replication block bytes
+# /health must report
+DENSE_CONFIGS = (("yi-9b", None, 1_572_864), ("qwen1.5-0.5b", None, 1_572_864),
+                 ("qwen1.5-32b", None, 10_649_600),
+                 ("deepseek-67b", 52, 3_407_872))
+DEPTH_CUTS = {
+    "deepseek-67b": "all 95 layers are 134.9 GB of bf16 weights, more than "
+                    "the card holds; 52 is the deepest whose peak, printed "
+                    "below, leaves room for the CUDA context (each layer "
+                    "adds 1.29 GiB)"}
+
+
+def dense_config_phases(card) -> dict:
+    """yi-9b, qwen1.5-0.5b, qwen1.5-32b and deepseek-67b at full width, one
+    after another on fresh random weights (torch.Generator seed 0): 2
+    instances, replication on, the int8 pool where the config's KV dtype
+    is int8; serving twice, an instance kill, a decode-step profile.
+    Returns each attention kernel's launches."""
+    out = {"paged_attention": 0, "paged_attention_int8": 0}
+    for name, depth, block in DENSE_CONFIGS:
+        full = get_config(name)
+        cfg = full if depth is None else dataclasses.replace(
+            full, n_layers=depth)
+        cut = f"depth cut to {depth} of {full.n_layers} layers: " \
+            f"{DEPTH_CUTS[name]}" if depth else "full depth"
+        phase(f"dense config {name}")
+        before = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = transformer.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+        torch.cuda.synchronize()
+        quant = cfg.kv_dtype == "int8"
+        print(f"model {name}: {cfg.n_layers} layers ({cut}), d_model "
+              f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} (rep "
+              f"{cfg.q_per_kv}), head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, "
+              f"vocab {cfg.vocab_size}, qkv_bias {cfg.qkv_bias}, "
+              f"{cfg.n_params() / 1e9:.2f} B params "
+              f"({2 * cfg.n_params() / 1e9:.1f} GB bf16), "
+              f"{'int8' if quant else 'bf16'} KV pool; random weights made "
+              f"in {time.perf_counter() - t0:.1f} s ({before:.1f} GiB "
+              "allocated before)")
+        check(block_bytes(cfg, quant) == block, "block bytes")
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+                   for n in SERVE_PROMPT_LENS]
+        prompts.append(list(prompts[1]))      # the same prompt twice
+        kernel, idle = (PA8, PA) if quant else (PA, PA8)
+        n = run_path(card, cfg, EngineConfig(max_slots=8, max_seq=256,
+                                             kv_quant=quant),
+                     kernel, idle, name, prompts, params=params,
+                     repeat=True)[0]
+        out[kname(kernel)] += n
+        card_gib = torch.cuda.get_device_properties(0).total_memory / 2**30
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        held = torch.cuda.max_memory_reserved() / 2**30
+        print(f"[{name}] peak memory: {peak:.2f} GiB allocated, {held:.2f} "
+              f"GiB reserved, of the card's {card_gib:.2f} GiB [{card}]")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def serving_phases(card: str) -> dict:
-    """The bf16 path, the int8 + chunked-prefill path, then the prefix-cache
-    and disaggregated paths, all on the same weights. Returns each
+    """The bf16 path, the int8 + chunked-prefill path, the prefix-cache and
+    disaggregated paths, then the 8-instance fleet, all on the same
+    Llama-3.1-8B weights; then the other dense configs. Returns each
     kernel's launches on its paths."""
     cfg = get_config("llama3-8b")
     print(f"model {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"vocab {cfg.vocab_size}, {cfg.n_params() / 1e9:.2f} B params, "
           f"{cfg.dtype}, random weights (torch.Generator seed 0)")
-    check(cfg.n_layers == LAYERS_PER_STEP, "layer count")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
                for n in SERVE_PROMPT_LENS]
@@ -1438,15 +1934,21 @@ def serving_phases(card: str) -> dict:
         card, cfg, EngineConfig(max_slots=8, max_seq=256), PA, PA8, "bf16",
         prompts)
     # same weights, int8 pool, chunks of 64: the 200-token prompt runs 4
-    int8, _ = run_path(
+    int8 = run_path(
         card, cfg, EngineConfig(max_slots=8, max_seq=256, kv_quant=True,
                                 prefill_chunk=64),
-        PA8, PA, "int8 + chunked prefill", prompts, params=params)
+        PA8, PA, "int8 + chunked prefill", prompts, params=params)[0]
     bf16 += shared_prefix_phases(card, cfg, params)
-    return {"paged_attention": bf16, "paged_attention_int8": int8}
+    bf16 += fleet_phases(card, cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = dense_config_phases(card)
+    return {"paged_attention": bf16 + launches["paged_attention"],
+            "paged_attention_int8": int8 + launches["paged_attention_int8"]}
 
 
-# -- 15. mamba2 generation -------------------------------------------------------
+# -- 20. mamba2 generation ----------------------------------------------------
 
 @contextlib.contextmanager
 def plain_scan_calls():
@@ -1685,6 +2187,8 @@ def main() -> int:
     entries = [kernel_phase()]
     phase("kernel (int8)")
     entries.append(kernel_int8_phase())
+    phase("kernel (head geometries)")
+    geometry = geometry_phase(card)
     phase("kernel (ssd_scan)")
     entries.append(ssd_scan_phase())
 
@@ -1695,6 +2199,7 @@ def main() -> int:
         e["launches"] = launches[e["name"]]
 
     phase("summary")
+    print(f"head geometries [{card}]: " + json.dumps(geometry))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

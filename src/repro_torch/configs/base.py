@@ -1,5 +1,6 @@
 """Model architecture config: ``ModelConfig`` with its derived sizes and the
-``reduced()`` variant the CPU tests run.
+``reduced()`` variant the CPU tests run, and the canonical benchmark input
+shapes with the policy of which (config, shape) pairs run.
 
 Framework-free (a copy of the reference package's config dataclass), so the
 same field values describe the same model in both packages.
@@ -7,7 +8,7 @@ same field values describe the same model in both packages.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 ARCH_TYPES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
@@ -130,6 +131,14 @@ class ModelConfig:
                 total += 2 * d * w + w * d + 4 * w + 2 * d
         return total
 
+    def n_active_params(self) -> int:
+        """Params touched per token (MoE uses top_k of n_experts)."""
+        if self.arch_type != "moe":
+            return self.n_params()
+        d, f = self.d_model, self.d_ff
+        dense_share = self.n_params() - self.n_layers * self.n_experts * 3 * d * f
+        return dense_share + self.n_layers * self.top_k * 3 * d * f
+
     # -- reduced variant for CPU smoke tests -------------------------------
     def reduced(self) -> "ModelConfig":
         """Same family, toy size: <=2 layers, d_model<=512, <=4 experts."""
@@ -168,3 +177,33 @@ class ModelConfig:
             frontend_dim=min(self.frontend_dim, 256) if self.frontend_dim else 0,
             page_size=8,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    """Canonical benchmark input shape."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES: Dict[str, InputShape] = {
+    "train_4k":    InputShape("train_4k",    4_096,   256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  InputShape("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   InputShape("long_500k",   524_288, 1,   "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: InputShape) -> Tuple[bool, str]:
+    """Which (config x shape) pairs run: no decode shape for an encoder,
+    and 500k-token decode only with a window or a recurrent state."""
+    if cfg.is_encoder_only and shape.kind == "decode":
+        return False, "encoder-only: no decode step"
+    if shape.name == "long_500k" and cfg.has_kv_cache:
+        if not (cfg.sliding_window or cfg.long_context_window
+                or cfg.arch_type in ("ssm", "hybrid")):
+            return False, "full attention at 500k context: needs window variant"
+    return True, ""

@@ -28,7 +28,7 @@ def torch_dtype(name: str) -> torch.dtype:
 # --------------------------------------------------------------------------
 
 def dense_init(generator, shape, scale: Optional[float] = None,
-               dtype=torch.bfloat16, device="cpu"):
+               dtype=torch.bfloat16, *, device):
     """N(0, scale^2) drawn in f32 then cast; scale defaults to
     1/sqrt(fan_in) with fan_in = shape[0] (shape[1] for a layer-stacked
     (L, fan_in, fan_out) weight — pass ``scale`` explicitly there)."""
@@ -39,12 +39,12 @@ def dense_init(generator, shape, scale: Optional[float] = None,
     return (x * scale).to(dtype)
 
 
-def init_embed(generator, cfg, dtype=torch.bfloat16, device="cpu"):
+def init_embed(generator, cfg, dtype, device):
     """Token embedding (N(0, 0.02^2)), final norm (ones) and, unless tied,
     the unembedding (1/sqrt(d_model)) — the reference's scales."""
     d = cfg.d_model
     emb = {"tok": dense_init(generator, (cfg.vocab_size, d), 0.02, dtype,
-                             device),
+                             device=device),
            "norm_f": torch.ones((d,), dtype=dtype, device=device)}
     if not cfg.tie_embeddings:
         emb["unembed"] = dense_init(generator, (d, cfg.vocab_size),
@@ -71,7 +71,7 @@ def rms_norm(x, weight, eps: float = 1e-5):
 # RoPE
 # --------------------------------------------------------------------------
 
-def rope_frequencies(head_dim: int, theta: float, device="cpu"):
+def rope_frequencies(head_dim: int, theta: float, device):
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
     # a Python-scalar base: no host->device copy (which would synchronise

@@ -18,7 +18,7 @@ def _stacked(generator, n_layers, shape, dtype, device):
     out = torch.empty((n_layers, *shape), dtype=dtype, device=device)
     scale = 1.0 / math.sqrt(shape[0])
     for i in range(n_layers):
-        out[i] = L.dense_init(generator, shape, scale, dtype, device)
+        out[i] = L.dense_init(generator, shape, scale, dtype, device=device)
     return out
 
 

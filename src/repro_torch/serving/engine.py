@@ -36,9 +36,16 @@ replicas. ``EngineConfig.recovery`` picks ``kevlarflow`` (warm-spare
 rejoin) or ``standard`` (every victim restarts and the group stalls for
 ``reload_penalty`` clock units).
 
+A shard-granularity fault (``fail_shard``) degrades an instance instead of
+killing it: its slot capacity drops to the surviving fraction of its
+``n_shards``, the excess requests migrate, and the instance serves on.
+One card runs no tensor parallelism, so the degraded layout (which tensors
+stay model-sharded over the surviving shards, the bytes per shard) is
+computed over shapes (``distributed/sharding.py``) and reported, not
+executed; decode on the surviving slots is unchanged.
+
 This port serves the dense family with monolithic or chunked prefill, a
 bf16 or int8 KV pool, prefix caching and prefill/decode disaggregation.
-Shard-granularity faults are a later slice.
 """
 from __future__ import annotations
 
@@ -49,6 +56,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import layers as L
 from repro_torch.models import paged_decode as PD
 from repro_torch.models import transformer
@@ -109,8 +117,15 @@ class EngineConfig:
     auto_rejoin: bool = False      # schedule rejoin_instance automatically
     rejoin_delay: float = 1.0      # kevlarflow spare re-form (clock units)
     reload_penalty: float = 20.0   # standard full re-init (clock units)
-    # tensor-parallel shards per instance: the /health schema reports it;
-    # shard-granularity faults are not ported yet
+    # modeled tensor-parallel shards per instance. A shard-granularity
+    # fault (apply_fault / fail_shard) degrades the instance onto its
+    # surviving slice instead of killing it: slot capacity drops to
+    # floor(max_slots * surviving / n_shards), the layout re-derived over
+    # the smaller model axis is reported (distributed.sharding —
+    # replicate-fallback where divisibility breaks), and the ClusterView
+    # marks it DEGRADED (its own epoch bump) so placement deprioritizes it
+    # and routing discounts it. Under "standard" recovery a shard fault
+    # escalates to whole-instance failure
     n_shards: int = 4
 
 
@@ -172,7 +187,12 @@ class RealInstance:
         # prefill jobs whose final chunk just ran under handoff_mode: the
         # engine drains these into its handoff records each step
         self.ready_handoffs: List[dict] = []
+        # shard-level degradation: lost shard indices; a degraded instance
+        # serves on with its slots capped (slot_cap) and the layout summary
+        # of the surviving slice in degraded_layout
         self.n_shards = max(1, ecfg.n_shards)
+        self.lost_shards: set = set()
+        self.degraded_layout: Optional[dict] = None
         B, S = ecfg.max_slots, ecfg.max_seq
         page = cfg.page_size
         self.window = cfg.sliding_window
@@ -238,14 +258,46 @@ class RealInstance:
     # -- admission -----------------------------------------------------------
     @property
     def slot_cap(self) -> int:
-        return self.ecfg.max_slots
+        """Concurrent-slot capacity under the current shard set: the full
+        ``max_slots`` when whole, scaled by the surviving fraction when
+        degraded (never below 1 — a degraded instance still serves)."""
+        if not self.lost_shards:
+            return self.ecfg.max_slots
+        surviving = self.n_shards - len(self.lost_shards)
+        return max(1, (self.ecfg.max_slots * surviving) // self.n_shards)
 
     def capacity_frac(self) -> float:
         """Throughput cap as a fraction of the whole instance (0 dead)."""
-        return 1.0 if self.alive else 0.0
+        if not self.alive:
+            return 0.0
+        if not self.lost_shards:
+            return 1.0
+        return (self.n_shards - len(self.lost_shards)) / self.n_shards
 
     def free_slots(self) -> List[int]:
-        return [i for i, r in enumerate(self.slot_rid) if r < 0]
+        """Admittable slot indices, capped by ``slot_cap``: every admission
+        path — queue admit, replica adoption, handoff seating — respects a
+        degraded instance's reduced capacity."""
+        free = [i for i, r in enumerate(self.slot_rid) if r < 0]
+        headroom = max(0, self.slot_cap - (len(self.slot_rid) - len(free)))
+        return free[:headroom]
+
+    def degrade(self, shard_idx: int) -> List[Request]:
+        """Lose one shard: record it, shrink capacity, and hand back the
+        EXCESS in-flight requests (the highest occupied slots). The engine
+        migrates them; the pool and every request that stays are
+        untouched, so decode on the survivors is byte-identical."""
+        self.lost_shards.add(shard_idx)
+        occupied = [i for i, r in enumerate(self.slot_rid) if r >= 0]
+        excess = len(occupied) - self.slot_cap
+        if excess <= 0:
+            return []
+        return [self.requests[self.slot_rid[i]] for i in occupied[-excess:]]
+
+    def restore_shards(self):
+        """Every lost shard rejoined: full layout, full capacity."""
+        self.lost_shards.clear()
+        self.degraded_layout = None
 
     def _allocate(self, rid: int, n_tokens: int, token_ids=None):
         """Allocate primary blocks, evicting hosted replicas under pressure
@@ -796,8 +848,14 @@ class RealEngine:
         self.repl_shared_refs_total = 0
         self.repl_shared_hostings_total = 0
         self._shared_hosted_keys: set = set()   # live (target, key) pairs
-        # (n_active_slots, wall_seconds) per engine step that decoded
+        # (n_active_slots, wall_seconds, capacity_frac) per engine step that
+        # decoded; capacity_frac < 1.0 marks steps served while some
+        # instance ran degraded (a shard loss caps its slots)
         self.step_samples: List[tuple] = []
+        # the degraded-layout census's inputs, made on the first shard
+        # fault: the serving mesh and the decode cache's shapes
+        self._shard_mesh: Optional[dict] = None
+        self._cache_struct: Optional[dict] = None
 
     def _make_instance(self, instance_id: int) -> RealInstance:
         return RealInstance(self.cfg, self.params, self.ecfg, instance_id,
@@ -816,6 +874,26 @@ class RealEngine:
     @property
     def repl_shared_copies_total(self) -> int:
         return self.transport.shipped["repl"].shared_copies
+
+    # state blobs ride only with the hybrid family, not ported yet
+    repl_blobs_total = 0
+    repl_blobs_staged = 0
+
+    @property
+    def repl_blocks_staged(self) -> int:
+        return self.transport.staged["repl"].blocks
+
+    @property
+    def repl_bytes_staged(self) -> int:
+        return self.transport.staged["repl"].bytes
+
+    @property
+    def repl_bytes_dropped(self) -> int:
+        return self.transport.dropped["repl"].bytes
+
+    @property
+    def _pending_ship(self) -> List[dict]:
+        return self.transport.pending
 
     def submit(self, req: Request):
         self.waiting.append(req)
@@ -847,6 +925,10 @@ class RealEngine:
         q = self.queues[tgt.instance_id]
         q.insert(0, req) if front else q.append(req)
 
+    def queued_requests(self) -> List[Request]:
+        """Requests routed to an instance but not yet admitted."""
+        return [r for q in self.queues.values() for r in q]
+
     def has_pending(self) -> bool:
         """True while any request is waiting, queued, or in flight."""
         return bool(self.waiting) or \
@@ -860,6 +942,12 @@ class RealEngine:
         """True while a spare is waiting to rejoin or the group is inside a
         standard-mode reload stall."""
         return self.control.planner.has_pending() or self.t < self.stall_until
+
+    @property
+    def _pending_rejoins(self) -> List[tuple]:
+        """(instance_id, ready_at) recoveries scheduled — a read view over
+        the recovery planner."""
+        return self.control.planner.pending_rejoins()
 
     def _ring_target(self, instance_id: int) -> int:
         return self.control.placement.target(instance_id, self.control.view)
@@ -876,9 +964,15 @@ class RealEngine:
         self.flush_replication()
         if self._handoffs:
             self._complete_handoffs()
+        # at most one due recovery per step, earliest failure first; the
+        # plan interleaves both granularities: a shard rejoin restores the
+        # full layout in place, an instance rejoin brings back a warm spare
         due = self.control.planner.next_due(self.t)
         if due is not None:
-            self.rejoin_instance(due)
+            if self.control.planner.pending_kind(due) == "shard":
+                self.rejoin_shards(due)
+            else:
+                self.rejoin_instance(due)
         if self.t < self.stall_until:
             return 0       # standard recovery: group-wide weight reload
         alive = [i for i in self.instances if i.alive]
@@ -945,7 +1039,12 @@ class RealEngine:
             self.flush_replication(block=True)
             self._complete_handoffs()
         if n_active:
-            self.step_samples.append((n_active, time.perf_counter() - _t0))
+            # the fleet's serving-capacity fraction this step: degraded
+            # instances cap below max_slots
+            cap = sum(i.slot_cap for i in alive)
+            cap_frac = cap / max(len(self.instances) * self.ecfg.max_slots, 1)
+            self.step_samples.append(
+                (n_active, time.perf_counter() - _t0, cap_frac))
             if len(self.step_samples) > 20000:      # bound long-run memory
                 del self.step_samples[:10000]
         return progressed
@@ -1182,6 +1281,12 @@ class RealEngine:
             "blocks_per_request_step": self.repl_blocks_total / req_steps,
             "retire_msgs_total": self.retire_msgs_total,
             "retires_per_request_step": self.retire_msgs_total / req_steps,
+            # replication landing on degraded targets (placement
+            # deprioritizes them, so this stays near zero)
+            "bytes_to_degraded":
+                self.transport.shipped_degraded["repl"].bytes,
+            "blocks_to_degraded":
+                self.transport.shipped_degraded["repl"].blocks,
         }
 
     def disagg_stats(self) -> dict:
@@ -1291,17 +1396,19 @@ class RealEngine:
         if spec.if_busy and not self.instances[spec.instance_id].requests:
             return None
         if spec.granularity == "shard":
-            raise ValueError("shard-granularity faults are not ported yet")
+            return self._apply_shard_fault(spec.instance_id, spec.shard_idx)
         return self._apply_instance_fault(spec.instance_id)
 
     def recover(self, spec: FaultSpec):
-        """THE recovery entry point (``POST /v1/admin/recover``). State
-        conflicts — rejoining an alive instance, restoring shards of an
-        instance that lost none — raise ValueError (HTTP 409)."""
+        """THE recovery entry point (``POST /v1/admin/recover``): instance
+        granularity rebuilds the warm spare, shard granularity restores a
+        degraded instance's lost shards in place. State conflicts —
+        rejoining an alive instance, restoring shards of an instance that
+        lost none — raise ValueError (HTTP 409)."""
         spec.validate(len(self.instances), self.ecfg.n_shards,
                       for_recover=True)
         if spec.granularity == "shard":
-            raise ValueError(f"instance {spec.instance_id} is not degraded")
+            return self._recover_shards(spec.instance_id)
         return self._recover_instance(spec.instance_id)
 
     def fail_instance(self, instance_id: int) -> List[int]:
@@ -1309,10 +1416,23 @@ class RealEngine:
         return self.apply_fault(
             FaultSpec(granularity="instance", instance_id=instance_id))
 
+    def fail_shard(self, instance_id: int, shard_idx: int) -> List[int]:
+        """Lose ONE shard of an instance (thin wrapper over
+        ``apply_fault``): the instance degrades instead of dying."""
+        return self.apply_fault(
+            FaultSpec(granularity="shard", instance_id=instance_id,
+                      shard_idx=shard_idx))
+
     def rejoin_instance(self, instance_id: int) -> RealInstance:
         """Warm-spare rejoin (thin wrapper over ``recover``)."""
         return self.recover(
             FaultSpec(granularity="instance", instance_id=instance_id))
+
+    def rejoin_shards(self, instance_id: int) -> RealInstance:
+        """Restore a degraded instance's lost shards (thin wrapper over
+        ``recover``)."""
+        return self.recover(
+            FaultSpec(granularity="shard", instance_id=instance_id))
 
     def _apply_instance_fault(self, instance_id: int) -> List[int]:
         """Kill an instance and run the configured recovery policy.
@@ -1403,6 +1523,116 @@ class RealEngine:
                                             kind="instance")
         return resumed
 
+    def _apply_shard_fault(self, instance_id: int,
+                           shard_idx: int) -> List[int]:
+        """Lose ONE tensor-parallel shard: the instance DEGRADES instead of
+        dying. Slot capacity drops to the surviving fraction and only the
+        EXCESS in-flight requests migrate — released here (the pool
+        survives, so the seat frees cleanly), then resumed from their
+        promoted replica on the ring home, or restarted where none is
+        hosted. The ClusterView marks the instance DEGRADED with its own
+        epoch bump, so placement stops preferring it as a replica host and
+        routing discounts it. Under ``standard`` recovery — or on the LAST
+        surviving shard — the fault escalates to whole-instance failure.
+        Returns the rids that resumed seamlessly."""
+        inst = self.instances[instance_id]
+        if not inst.alive:
+            raise ValueError(
+                f"instance {instance_id} is dead — recover it at instance "
+                "granularity before injecting shard faults")
+        if shard_idx in inst.lost_shards:
+            return []      # idempotent retry (e.g. an HTTP retry)
+        if self.ecfg.recovery == "standard" or \
+                len(inst.lost_shards) + 1 >= inst.n_shards:
+            return self._apply_instance_fault(instance_id)
+        if self.clock is not None:
+            self.t = self.clock()       # admin-thread call: stamp it now
+        # the last step's staged deltas land on the ring hosts before any
+        # excess victim resumes from its promoted replica
+        self.flush_replication()
+        victims = inst.degrade(shard_idx)
+        inst.degraded_layout = self._degradation_layout(inst.lost_shards)
+        self.control.view.mark_degraded(instance_id, shard_idx)
+        event = {"instance": instance_id, "granularity": "shard",
+                 "shard_idx": shard_idx, "mode": self.ecfg.recovery,
+                 "t_fail": self.t, "n_victims": len(victims),
+                 "requeued": 0, "resumed": 0, "restarted": 0,
+                 "t_rejoin": -1.0, "mttr": -1.0}
+        self.failure_events.append(event)
+        # in-flight handoff streams keep their parked prefill slot — the
+        # shards serving the stream survived; only seated work re-seats
+        victims = [r for r in victims if r.rid not in self._handoffs]
+        resumed: List[int] = []
+        restarted: List[Request] = []
+        for req in victims:
+            meta = self.replica_meta.pop(req.rid, None)
+            inst.release(req.rid)
+            target = None
+            if meta is not None and self.instances[meta["home"]].alive:
+                target = self.instances[meta["home"]]
+            if target is not None and \
+                    target.adopt_replica(meta["peer"], req, meta):
+                resumed.append(req.rid)
+                event["resumed"] += 1
+            else:
+                if target is not None:
+                    target.pool.drop_replica(meta["peer"], req.rid)
+                req.restart()
+                req.state = RequestState.QUEUED
+                event["restarted"] += 1
+                restarted.append(req)
+        for req in reversed(restarted):
+            self._route(req, front=True)
+        rejoin_at = self.t + self.ecfg.rejoin_delay \
+            if self.ecfg.auto_rejoin else None
+        self.control.planner.on_failure(instance_id, self.t,
+                                        rejoin_at=rejoin_at, kind="shard")
+        return resumed
+
+    def _degradation_layout(self, lost_shards) -> dict:
+        """The layout of serving on the surviving slice, through the
+        sharding rules in ``distributed/sharding.py``: specs re-derived
+        over a model axis shrunk to the surviving shard count, with
+        replicate-fallback wherever divisibility broke. The mesh and the
+        cache's shapes are made once per engine."""
+        if self._shard_mesh is None:
+            self._shard_mesh = SH.mesh(self.ecfg.n_shards)
+            self._cache_struct = SH.decode_cache_shape(
+                self.cfg, self.ecfg.max_slots, self.ecfg.max_seq)
+        return SH.degradation_summary(
+            self.params, self._shard_mesh, lost_shards,
+            cache_shape=self._cache_struct, arch_type=self.cfg.arch_type)
+
+    def _recover_shards(self, instance_id: int) -> RealInstance:
+        """Shard rejoin: restore the full layout and slot capacity in place
+        — the surviving-shard state is untouched, so every request that
+        rode out the degradation resumes byte-identically. The flush
+        barrier mirrors the fault side: the epoch bump below re-targets the
+        ring, and staged copies land against the topology they were staged
+        under."""
+        inst = self.instances[instance_id]
+        if not inst.alive:
+            raise ValueError(
+                f"instance {instance_id} is dead — recover it at instance "
+                "granularity")
+        if not inst.lost_shards:
+            raise ValueError(f"instance {instance_id} is not degraded")
+        if self.clock is not None:
+            self.t = self.clock()
+        self.flush_replication()
+        inst.restore_shards()
+        self.control.view.mark_restored(instance_id)
+        self.control.planner.on_rejoined(instance_id, self.t)
+        # every open shard event closes: the restore brings back ALL lost
+        # shards at once
+        for event in self.failure_events:
+            if event["instance"] == instance_id and \
+                    event["granularity"] == "shard" and \
+                    event["t_rejoin"] < 0:
+                event["t_rejoin"] = self.t
+                event["mttr"] = self.t - event["t_fail"]
+        return inst
+
     def _recover_instance(self, instance_id: int) -> RealInstance:
         """Warm-spare rejoin (decoupled init, paper Sec 3.2 mechanism #1):
         rebuild the failed instance around the shared weights and programs
@@ -1419,8 +1649,14 @@ class RealEngine:
         self.instances[instance_id] = inst
         self.queues[instance_id] = []
         self.control.view.mark_alive(instance_id)
+        # fresh pool, no hosted keys (the fault already pruned them)
+        self._shared_hosted_keys = {
+            (t, k) for (t, k) in self._shared_hosted_keys
+            if t != instance_id}
         for event in reversed(self.failure_events):
-            if event["instance"] == instance_id and event["t_rejoin"] < 0:
+            if event["instance"] == instance_id and \
+                    event["granularity"] == "instance" and \
+                    event["t_rejoin"] < 0:
                 event["t_rejoin"] = self.t
                 event["mttr"] = self.t - event["t_fail"]
                 break

@@ -15,7 +15,12 @@ runs prompts in chunks of N tokens interleaved with decode steps.
 ``--prefix-cache`` shares fully-covered prompt pages between requests by
 reference, and ``--disaggregate`` splits the instances into prefill and
 decode roles (chunked prefill, 8 tokens a chunk unless ``--prefill-chunk``
-says otherwise). The flags combine freely.
+says otherwise). ``--n-shards`` sets the tensor-parallel shards per
+instance: ``POST /v1/admin/fault`` with ``granularity="shard"`` degrades an
+instance onto its surviving shards (``/health`` shows ``lost_shards``, the
+capped ``slot_cap`` and the degraded ``layout``), and ``POST
+/v1/admin/recover`` with ``granularity="shard"`` restores it. The flags
+combine freely.
 """
 from __future__ import annotations
 
@@ -133,6 +138,13 @@ class EngineService:
         return self.apply_fault(
             FaultSpec(granularity="instance", instance_id=instance_id))
 
+    def fail_instance_if_busy(self, instance_id: int):
+        """Kill the instance IFF it has in-flight requests. Returns the
+        resumed rids, or None if it was idle."""
+        return self.apply_fault(
+            FaultSpec(granularity="instance", instance_id=instance_id,
+                      if_busy=True))
+
     def rejoin_instance(self, instance_id: int):
         self.recover(
             FaultSpec(granularity="instance", instance_id=instance_id))
@@ -153,9 +165,11 @@ class EngineService:
                     pool_replica_blocks=i.pool.replica_blocks_used(),
                     degradation=DegradationState(
                         state=eng.control.view.state_of(i.instance_id),
-                        n_shards=i.n_shards, lost_shards=[],
+                        n_shards=i.n_shards,
+                        lost_shards=sorted(i.lost_shards),
                         slot_cap=i.slot_cap if i.alive else 0,
-                        capacity_frac=i.capacity_frac()))
+                        capacity_frac=i.capacity_frac(),
+                        layout=i.degraded_layout))
                 for i in eng.instances]
             return HealthResponse(
                 status="ok", instances=instances,
@@ -166,6 +180,10 @@ class EngineService:
                 prefix=eng.prefix_stats(),
                 disagg=eng.disagg_stats(),
                 topology=TopologyBlock(**eng.control.describe()))
+
+    def stats(self):
+        """The /health payload as a plain dict."""
+        return self.health().to_json()
 
     def shutdown(self, drain_timeout: float = 0.0):
         """Stop the engine loop; with ``drain_timeout`` > 0, let in-flight
@@ -205,8 +223,9 @@ def make_handler(svc: EngineService):
                 self._json(404, {"error": "not found"})
 
         def _fault(self, payload):
-            """POST /v1/admin/fault. Shape errors are 400; state conflicts
-            (and faults this port does not serve yet) are 409."""
+            """POST /v1/admin/fault. Shape errors (a spec out of range) are
+            400; state conflicts (a shard fault on a dead instance) are
+            409."""
             try:
                 spec = FaultSpec.from_json(payload)
                 svc.validate_spec(spec)
@@ -226,7 +245,8 @@ def make_handler(svc: EngineService):
 
         def _recover(self, payload):
             """POST /v1/admin/recover. Shape errors are 400; state
-            conflicts (rejoining an alive instance) are 409."""
+            conflicts (rejoining an alive instance, restoring one that lost
+            no shard) are 409."""
             try:
                 spec = FaultSpec.from_json(payload)
                 svc.validate_spec(spec, for_recover=True)
@@ -361,7 +381,14 @@ def main():
     ap.add_argument("--reload-penalty", type=float, default=20.0)
     ap.add_argument("--placement", default="successor",
                     choices=["successor", "rendezvous"],
-                    help="replication placement policy")
+                    help="replication placement policy: next-alive ring "
+                         "successor, or rendezvous hashing (fewer replicas "
+                         "re-hosted on a membership change)")
+    ap.add_argument("--n-shards", type=int, default=4,
+                    help="tensor-parallel shards per instance — the unit "
+                         "of shard-granularity faults (/v1/admin/fault "
+                         "with granularity=shard degrades the instance to "
+                         "its surviving slice instead of killing it)")
     args = ap.parse_args()
     cfg = get_config(args.arch)
     if args.reduced:
@@ -377,11 +404,13 @@ def main():
                         rejoin_delay=args.rejoin_delay,
                         reload_penalty=args.reload_penalty,
                         placement=args.placement,
+                        n_shards=args.n_shards,
                         replicate=(args.recovery == "kevlarflow"))
     svc, httpd = serve(cfg, ecfg, n_instances=args.instances, port=args.port,
                        device=args.device)
     print(f"KevlarFlow serving {cfg.name} on :{httpd.server_address[1]} "
-          f"({args.instances} instances, {args.recovery} recovery, "
+          f"({args.instances} instances of {args.n_shards} shards, "
+          f"{args.recovery} recovery, {args.placement} placement, "
           f"{args.device}, {'int8' if args.kv_quant else 'bf16'} KV pool, "
           f"prefill chunk {args.prefill_chunk or 'off'}, prefix cache "
           f"{'on' if args.prefix_cache else 'off'}, "

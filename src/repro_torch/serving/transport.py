@@ -95,6 +95,10 @@ class TransportChannel:
         self.staged: Dict[str, Tally] = {k: Tally() for k in KINDS}
         self.shipped: Dict[str, Tally] = {k: Tally() for k in KINDS}
         self.dropped: Dict[str, Tally] = {k: Tally() for k in KINDS}
+        # subset of shipped: jobs whose target was serving DEGRADED at
+        # flush time (shard loss); placement deprioritizes degraded ring
+        # targets, so this stays near zero
+        self.shipped_degraded: Dict[str, Tally] = {k: Tally() for k in KINDS}
 
     def stage(self, kind: str, src_id: int, dst_id: int, blocks,
               shared_copies: int = 0, on_shipped=None) -> dict:
@@ -129,6 +133,8 @@ class TransportChannel:
             src = self.instances[msg["src"]]
             src.pool.copy_blocks_to(dst.pool, *msg["blocks"])
             self.shipped[msg["kind"]].add(msg)
+            if self.view is not None and self.view.is_degraded(msg["dst"]):
+                self.shipped_degraded[msg["kind"]].add(msg)
             if msg["on_shipped"] is not None:
                 msg["on_shipped"]()
             shipped.append(dst)

@@ -154,6 +154,35 @@ def test_paged_attention_int8_kernel_matches_plain(card, smoke, dtype,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [16, 256])
+@pytest.mark.parametrize("name", ["yi-9b", "deepseek-67b", "qwen1.5-0.5b",
+                                  "qwen1.5-32b"])
+def test_dense_config_head_geometries_match_plain(card, smoke, name, width,
+                                                  dtype):
+    """Both attention kernels at the decode head geometry of each dense
+    config (rep 8: the 8-head tile; rep 1 at D 64 and D 128), B 8, page
+    16, lengths up to 256 and 4096, against their plain versions."""
+    cfg = get_config(name)
+    shape = (8, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 16, width)
+    q, kp, vp, bt, ln, st = _case(*shape, torch.float32)
+    (kq, ks), (vq, vs) = PA8.quantize_pages(kp), PA8.quantize_pages(vp)
+    q = q.to(dtype)
+    for kernel, plain, args in (
+            (PA.paged_attention, paged_attention_ref,
+             (q, kp.to(dtype), vp.to(dtype), bt, ln)),
+            (PA8.paged_attention_int8, paged_attention_int8_ref,
+             (q, kq, ks, vq, vs, bt, ln))):
+        for starts in (None, st):
+            got = kernel(*args, starts)
+            torch.cuda.synchronize()
+            want = plain(*args, starts)
+            assert got.dtype == dtype and got.shape == q.shape
+            err, limit = smoke.seq_errors(got, want, dtype)
+            assert bool((err <= limit).all()), (name, width, dtype)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["bf16", "int8"])
 @pytest.mark.parametrize("width", [16, 256])
 def test_split_boundaries_length_1_and_masked_splits(card, smoke, kind,

@@ -44,7 +44,8 @@ def test_port_and_chip_smoke_import_without_jax_or_reference():
             "repro_torch.kernels.ops",
             "repro_torch.kernels.ssd_scan",
             "repro_torch.models.ssm",
-            "repro_torch.models.api"} <= names
+            "repro_torch.models.api",
+            "repro_torch.distributed.sharding"} <= names
 
 
 FORBIDDEN = re.compile(

@@ -1,7 +1,8 @@
 """The port's HTTP server, started from its command line on the CPU
 (``--device cpu --reduced``, ephemeral port): completion round-trip, the
 typed /health schema, an instance kill through /v1/admin/fault under live
-traffic, and the prefix-cache and disaggregated services."""
+traffic, shard faults and their recovery, and the prefix-cache and
+disaggregated services."""
 import json
 import os
 import re
@@ -63,6 +64,13 @@ def int8_url():
 def prefix_url():
     """The bf16 pool with the prefix cache (monolithic prefill)."""
     yield from _server("--prefix-cache")
+
+
+@pytest.fixture(scope="module")
+def shard_url():
+    """Four instances of 4 shards each under rendezvous placement."""
+    yield from _server("--instances", "4", "--n-shards", "4",
+                       "--placement", "rendezvous")
 
 
 @pytest.fixture(scope="module")
@@ -207,11 +215,81 @@ def test_int8_chunked_instance_kill_under_live_traffic(int8_url):
     assert event["restarted"] == retries
 
 
-def test_shard_fault_is_a_conflict_until_ported(base_url):
-    with pytest.raises(urllib.error.HTTPError) as ei:
-        _post(base_url + "/v1/admin/fault",
-              {"granularity": "shard", "instance_id": 1, "shard_idx": 0})
-    assert ei.value.code == 409
+def _status(url, payload):
+    """POST and return the HTTP status code (2xx or the error's)."""
+    try:
+        _post(url, payload)
+    except urllib.error.HTTPError as e:
+        return e.code
+    return 200
+
+
+def test_shard_fault_degrades_and_recovers_over_http(shard_url):
+    """A shard fault degrades instance 1 (3 of 4 shards survive): /health
+    shows it DEGRADED with lost_shards [0], 6 of 8 slots, capacity 0.75 and
+    the layout of the surviving slice; it keeps serving; a shard recover
+    restores it and closes the event."""
+    out = _post(shard_url + "/v1/admin/fault",
+                {"granularity": "shard", "instance_id": 1, "shard_idx": 0})
+    assert out["applied"] and out["fault"]["shard_idx"] == 0
+    h = _health(shard_url)
+    assert HealthResponse.from_json(h).to_json() == h
+    deg = h["instances"][1]["degradation"]
+    assert deg["state"] == "DEGRADED" and deg["lost_shards"] == [0]
+    assert deg["n_shards"] == 4 and deg["slot_cap"] == 6
+    assert deg["capacity_frac"] == 0.75
+    layout = deg["layout"]
+    assert layout["n_shards"] == 4 and layout["surviving"] == 3
+    assert layout["lost_shards"] == [0] and layout["capacity_frac"] == 0.75
+    # d_model 256 is not divisible by 3: every model-sharded weight falls
+    # back to replication, so each shard holds more bytes
+    assert layout["param_bytes_per_shard_degraded"] > \
+        layout["param_bytes_per_shard_full"]
+    assert h["topology"]["states"]["1"] == "DEGRADED"
+    assert h["topology"]["degraded"] == {"1": [0]}
+    assert h["instances"][0]["degradation"]["layout"] is None
+    toks = np.random.default_rng(5).integers(1, VOCAB, 9).tolist()
+    done = _post(shard_url + "/v1/completions",
+                 {"prompt_tokens": toks, "max_tokens": 4})
+    assert len(done["choices"][0]["token_ids"]) == 4
+    out = _post(shard_url + "/v1/admin/recover",
+                {"granularity": "shard", "instance_id": 1})
+    assert out["recovered"]["granularity"] == "shard"
+    h = _health(shard_url)
+    deg = h["instances"][1]["degradation"]
+    assert deg["state"] == "HEALTHY" and deg["lost_shards"] == []
+    assert deg["slot_cap"] == 8 and deg["capacity_frac"] == 1.0
+    assert deg["layout"] is None
+    event = h["failure_events"][-1]
+    assert event["granularity"] == "shard" and event["shard_idx"] == 0
+    assert event["instance"] == 1 and event["mttr"] >= 0
+
+
+def test_shard_fault_on_dead_instance_is_a_conflict(shard_url):
+    """State conflicts answer 409: a shard fault on a dead instance, and a
+    shard recover of an instance that lost no shard."""
+    out = _post(shard_url + "/v1/admin/fault",
+                {"granularity": "instance", "instance_id": 3})
+    assert out["applied"]
+    assert _status(shard_url + "/v1/admin/fault",
+                   {"granularity": "shard", "instance_id": 3,
+                    "shard_idx": 1}) == 409
+    assert _status(shard_url + "/v1/admin/recover",
+                   {"granularity": "shard", "instance_id": 2}) == 409
+    _post(shard_url + "/v1/admin/recover",
+          {"granularity": "instance", "instance_id": 3})
+    assert _health(shard_url)["instances"][3]["alive"]
+
+
+def test_malformed_shard_spec_is_a_bad_request(shard_url):
+    """Shape errors answer 400 before any state changes: shard_idx at or
+    past --n-shards, or a shard fault without one."""
+    for spec in ({"granularity": "shard", "instance_id": 0, "shard_idx": 4},
+                 {"granularity": "shard", "instance_id": 0}):
+        assert _status(shard_url + "/v1/admin/fault", spec) == 400
+    h = _health(shard_url)
+    assert all(i["degradation"]["state"] == "HEALTHY"
+               for i in h["instances"])
 
 
 def _shared_prefix_prompts():
@@ -272,3 +350,33 @@ def test_disaggregated_server_roles_and_handoffs(disagg_url, base_url):
     assert d["handoff_bytes_total"] == d["handoff_blocks_total"] * (
         2 * 2 * 2 * 8 * 64 * 2)
     assert h["topology"]["roles"] == {"0": "prefill", "1": "decode"}
+
+
+def test_fail_instance_if_busy_kills_only_a_busy_instance():
+    """EngineService.fail_instance_if_busy: a no-op (None) on an idle
+    instance, a kill that resumes its requests on a busy one. The service
+    loop is stopped so the engine is stepped by hand, in a known state."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.server import EngineService
+
+    svc = EngineService(get_config("llama3-8b").reduced(),
+                        EngineConfig(max_slots=4, max_seq=64), n_instances=2,
+                        device="cpu")
+    svc.shutdown()
+    eng = svc.engine
+    assert svc.fail_instance_if_busy(0) is None
+    assert svc.fail_instance_if_busy(1) is None
+    assert all(i.alive for i in eng.instances)
+    rng = np.random.default_rng(0)
+    reqs = [svc.submit(rng.integers(1, VOCAB, 6).tolist(), 8)
+            for _ in range(4)]
+    while not all(r.output_tokens for r in reqs):
+        eng.step()
+    busy = next(i for i in eng.instances if i.requests)
+    held = sorted(busy.requests)
+    resumed = svc.fail_instance_if_busy(busy.instance_id)
+    assert sorted(resumed) == held
+    assert not busy.alive
+    eng.run(max_iters=500)
+    assert sorted(r.rid for r in eng.done) == [r.rid for r in reqs]

@@ -32,7 +32,8 @@ Phases (each raises, and the script exits non-zero, if its check fails):
                 geometries of the dense configs: yi-9b (H 32, K 4, D 128) and
                 deepseek-67b (H 64, K 8, D 128), rep 8, the 8-head tile;
                 qwen1.5-0.5b (H 16, K 16, D 64) and qwen1.5-32b (H 40, K 40,
-                D 128), rep 1; B 8, page 16, lengths up to 256 and 4096,
+                D 128), rep 1; dbrx-132b (H 48, K 8, D 128), rep 6: 6 of
+                the 8-head tile's heads live; B 8, page 16, lengths up to 256 and 4096,
                 q bf16 and f32, with and without window starts, against the
                 plain versions; then each geometry, and llama3-8b's (rep 4,
                 for comparison), timed in a CUDA graph with bound and share.
@@ -58,7 +59,8 @@ Phases (each raises, and the script exits non-zero, if its check fails):
                 /v1/admin/fault while they decode; every stream must equal
                 the failure-free one, with at least one migration.
   9. decode profile — one instance's decode step called directly: wall
-                time, device-busy time and op count (torch.profiler).
+                time, device-busy time and op count (torch.profiler), and
+                the synchronizing calls one step makes.
   10.-12. serving, failover and decode profile again on a second service
                 built from the SAME weights with the int8 KV pool and
                 chunked prefill (chunks of 64); the kill may restart only
@@ -110,13 +112,32 @@ Phases (each raises, and the script exits non-zero, if its check fails):
                 equals failure-free serving. Then one cold init_params +
                 executor build of Llama-3.1-8B, timed, for comparison.
   19. dense configs — after freeing Llama's weights: yi-9b (48 layers),
-                qwen1.5-0.5b (24), qwen1.5-32b (32 of its 64 layers, int8
-                pool) and deepseek-67b (24 of its 95 layers), full width,
+                qwen1.5-0.5b (24), qwen1.5-32b (all 64 layers, int8
+                pool) and deepseek-67b (52 of its 95 layers), full width,
                 random weights: served twice (equal streams), an instance
                 kill (streams equal failure-free), the replication block
                 bytes checked, TTFT / latency / tokens per second, and a
                 decode-step profile.
-  20. mamba2 generation — full-width mamba2-130m (bf16, random weights from
+  20. moe config mixtral-8x7b — full width, 26 of 32 layers (the
+                deepest that fits; the peak is printed), fresh random
+                weights: the Llama prompt set served twice over HTTP, an
+                instance kill, the decode profile (synchronizing calls per
+                step equal to the dense step's), and the MoE MLP alone at
+                B 8: device time per layer and step beside its weight-read
+                bound.
+  21. moe invariants / moe window mixtral-8x7b — engines stepped by hand,
+                every stream bit for bit: chunked prefill (chunks of 64)
+                equal to the monolithic streams of phase 20; the
+                shared-prefix set with the prefix cache equal to cold; the
+                int8 pool with chunks of 64 through a kill equal to the same
+                path without it (and its decode profile); then two
+                4000-token prompts, 128 greedy tokens each, past the
+                4096-token window: pages recycle (retire messages, at most
+                257 resident), and a kill after the slide resumes both
+                streams byte-identically.
+  22. moe config dbrx-132b — after freeing mixtral: 11 of 40 layers, the
+                same serving, kill, decode and MoE MLP profiles as phase 20.
+  23. mamba2 generation — full-width mamba2-130m (bf16, random weights from
                 torch.Generator seed 0) through api.prefill and
                 api.decode_step: 8 prompts of 512 tokens (2 chunks), then 8
                 of 200 (one ragged chunk), 64 greedy tokens each, twice:
@@ -125,7 +146,7 @@ Phases (each raises, and the script exits non-zero, if its check fails):
                 kernel prefill against the plain chunked form, and forward
                 at t against prefill(:t) plus one decode step; prefill and
                 decode-step profiles.
-  21. summary — the head-geometry timings, one JSON line of kernels, the
+  24. summary — the head-geometry timings, one JSON line of kernels, the
                 card line, and the final {"ok": true, "device": ...} line.
 
 Each path's kernel launch counts are set to 0 just before the path and read
@@ -149,6 +170,7 @@ import sys
 import threading
 import time
 import urllib.request
+import warnings
 
 import numpy as np
 import torch
@@ -163,11 +185,12 @@ from repro_torch.kernels import ref as REF  # noqa: E402
 from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.kernels.ref import (paged_attention_int8_ref,  # noqa: E402
                                      paged_attention_ref, ssd_scan_ref)
-from repro_torch.models import api, ssm, transformer  # noqa: E402
+from repro_torch.models import api, moe, ssm, transformer  # noqa: E402
 from repro_torch.models import paged_decode as PD  # noqa: E402
+from repro_torch.models.transformer import layer_params  # noqa: E402
 from repro_torch.serving.engine import (EngineConfig,  # noqa: E402
-                                        FamilyExecutor)
-from repro_torch.serving.request import RequestState  # noqa: E402
+                                        FamilyExecutor, RealEngine)
+from repro_torch.serving.request import Request, RequestState  # noqa: E402
 from repro_torch.serving.server import serve  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM, NVIDIA data sheet
@@ -211,8 +234,11 @@ def check(ok: bool, msg: str):
         raise RuntimeError(f"check failed: {msg}")
 
 
+T0 = time.perf_counter()
+
+
 def phase(name: str):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T0:.1f} s)", flush=True)
 
 
 # -- 1. device ---------------------------------------------------------------
@@ -591,7 +617,7 @@ def kernel_int8_phase() -> dict:
 # tile) is timed beside the rep-8 ones (yi-9b, deepseek-67b: the 8-head
 # tile, which ptxas says spills), the rep-1 ones are qwen's MHA
 GEOMETRY_CONFIGS = ("llama3-8b", "yi-9b", "deepseek-67b", "qwen1.5-0.5b",
-                    "qwen1.5-32b")
+                    "qwen1.5-32b", "dbrx-132b")
 
 
 def geometry_shapes(cfg) -> dict:
@@ -680,6 +706,8 @@ def geometry_phase(card: str) -> list:
             print(f"{kernel} share of the bound at length {length} [{card}]: "
                   f"8-head tile yi-9b {share['yi-9b', kernel, length]:.3f}, "
                   f"deepseek-67b {share['deepseek-67b', kernel, length]:.3f}"
+                  f", 6 of 8 heads live dbrx-132b "
+                  f"{share['dbrx-132b', kernel, length]:.3f}"
                   f"; 4-head tile llama3-8b "
                   f"{share['llama3-8b', kernel, length]:.3f}")
     return rows
@@ -968,6 +996,9 @@ def decode_profile(engine, card: str, kernel):
     for _ in range(2):
         step()
     torch.cuda.synchronize()
+    # the second step's count: a first call under the debug mode may warn
+    # once for a one-time setup, which is printed but not counted
+    first, syncs = sync_calls(step), sync_calls(step)
     n = 5
     kernel.launches = 0
     t0 = time.perf_counter()
@@ -1002,14 +1033,34 @@ def decode_profile(engine, card: str, kernel):
          f"{name}_launches_per_step": per_step,
          "aten_ops_per_step": ops,
          "kernel_launches_per_step": sum(e.count for e in kernels) / n,
-         "device_idle_share": 1 - busy / (wall * 1e3) if busy else None}
+         "device_idle_share": 1 - busy / (wall * 1e3) if busy else None,
+         "syncs_per_step": len(syncs)}
     print(f"decode step profile [{card}]: " + json.dumps(m))
+    print(f"  synchronizing calls, first step under the debug mode: "
+          f"{first}; the next step: {syncs}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  device ms/step {e.self_device_time_total / n / 1e3:8.3f}"
               f"  launches/step {e.count / n:7.1f}  {e.key[:90]}")
     if not busy:
         print("decode step profile: the profiler saw no device time "
               "(device busy not measured)")
+    return m
+
+
+def sync_calls(fn) -> list:
+    """The synchronizing CUDA calls ``fn()`` makes, as "file:line"
+    strings: the warnings ``torch.cuda.set_sync_debug_mode("warn")``
+    raises while it runs."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+            for w in caught if "synchronizing" in str(w.message)]
 
 
 def block_bytes(cfg, quantized: bool) -> int:
@@ -1073,7 +1124,7 @@ def run_path(card, cfg, ecfg, kernel, idle, label, prompts, params=None,
     profile. ``kernel`` is the wrapper module the path must launch (a
     positive multiple of ``cfg.n_layers`` launches), ``idle`` the one it
     must not launch. Returns (launches on the serving and failover phases,
-    the engine's params)."""
+    the engine's params, the decode profile, the first run's streams)."""
     t0 = time.perf_counter()
     svc, httpd = serve(cfg, ecfg, n_instances=2, port=0, device="cuda",
                        params=params)
@@ -1167,12 +1218,12 @@ def run_path(card, cfg, ecfg, kernel, idle, label, prompts, params=None,
         svc.shutdown()
 
         phase(f"decode profile ({label})")
-        decode_profile(svc.engine, card, kernel)
+        profile = decode_profile(svc.engine, card, kernel)
     finally:
         httpd.shutdown()
         svc.shutdown()
         server.join(timeout=30)
-    return launches, svc.engine.params
+    return launches, svc.engine.params, profile, streams
 
 
 # -- 13.-15. cold reference, prefix cache, disaggregation ---------------------
@@ -1917,11 +1968,295 @@ def dense_config_phases(card) -> dict:
     return out
 
 
+# -- 20.-22. MoE configs -----------------------------------------------------
+
+# (config, layers served at full width, whether its invariant phase runs):
+# the deepest depth at which every phase of the config passes on one H100
+# 80GB HBM3 (700 W): the phases' peak at a probe depth plus a layer's
+# bytes (mixtral 25 -> 26 fits, dbrx 11 -> 12 does not); each config's
+# peak is printed
+MOE_CONFIGS = (("mixtral-8x7b", 26, True), ("dbrx-132b", 11, False))
+MOE_DEPTH_CUTS = {
+    "mixtral-8x7b": "all 32 layers are 92.9 GB of bf16 weights; a layer "
+                    "adds 2.70 GiB, and on an H100 80GB HBM3 every phase at "
+                    "25 layers peaked at 73.45 GiB of its 79.18, so 26 is "
+                    "the deepest that fits",
+    "dbrx-132b": "all 40 layers are 260.7 GB of bf16 weights; a layer adds "
+                 "6.07 GiB, and on an H100 80GB HBM3 every phase at 11 "
+                 "layers peaked at 73.73 GiB of its 79.18"}
+# mixtral's window phase: 4000-token prompts and 128 new tokens, so
+# positions pass the 4096-token window and the first page is retired at
+# position 4111, 16 tokens before the end
+WINDOW_PROMPT, WINDOW_NEW = 4000, 128
+
+
+def busiest_decoding(eng):
+    """The alive instance decoding the most requests, once no request is
+    waiting to be seated and some instance decodes; else None."""
+    if eng.queued_requests() or eng.waiting:
+        return None
+    counts = [decoding(i) if i.alive else -1 for i in eng.instances]
+    return int(np.argmax(counts)) if max(counts) > 0 else None
+
+
+def engine_run(cfg, params, ecfg, waves, n_new, kill=None):
+    """Serve ``waves`` of prompts on a 2-instance RealEngine stepped by
+    hand (each wave submitted once the one before has finished), ``n_new``
+    greedy tokens each. ``kill(eng)`` is asked after every step until it
+    names an instance, which is killed right there. Returns (streams in
+    prompt order, the requests, the most pages one request held, the
+    engine)."""
+    gc.collect()                  # the last run's engine and its pools
+    torch.cuda.empty_cache()
+    eng = RealEngine(cfg, ecfg, n_instances=2, device="cuda", params=params)
+    reqs, peak, killed = [], 0, False
+    for wave in waves:
+        batch = [Request(rid=len(reqs) + i, prompt_len=len(p),
+                         max_new_tokens=n_new, arrival_time=0.0,
+                         prompt_tokens=list(p)) for i, p in enumerate(wave)]
+        reqs += batch
+        for r in batch:
+            eng.submit(r)
+        while eng.has_pending():
+            eng.step()
+            for inst in eng.instances:
+                if inst.alive:
+                    for rid in inst.requests:
+                        peak = max(peak, len(inst.pool.table(rid)))
+            if kill is not None and not killed:
+                victim = kill(eng)
+                if victim is not None:
+                    eng.fail_instance(victim)
+                    killed = True
+    check(kill is None or killed, "the kill condition never held")
+    return [r.output_tokens for r in reqs], reqs, peak, eng
+
+
+def moe_mlp_profile(card, cfg, params):
+    """``moe.decode_mlp`` alone on layer 0 at B 8: device time per call
+    (kernel sums under torch.profiler, and CUDA events around 5 calls),
+    times the layers, beside the weight-read bound (every expert's three
+    bf16 matrices read once)."""
+    p = layer_params(params["layers"], 0)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((8, 1, cfg.d_model), generator=gen,
+                    device="cuda").to(params["embed"]["tok"].dtype)
+    for _ in range(2):
+        moe.decode_mlp(cfg, p, x)
+    n = 5
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        moe.decode_mlp(cfg, p, x)
+    stop.record()
+    torch.cuda.synchronize()
+    events_ms = start.elapsed_time(stop) / n
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            moe.decode_mlp(cfg, p, x)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / n / 1e3
+    w = p["experts"]["w_gate"]
+    nbytes = 3 * w.numel() * w.element_size()
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    m = {"layer_device_busy_ms": busy, "layer_events_ms": events_ms,
+         "step_device_busy_ms": busy * cfg.n_layers,
+         "layer_bound_ms": bound, "step_bound_ms": bound * cfg.n_layers,
+         "share_of_bound": bound / busy if busy else None,
+         "launches_per_layer": sum(e.count for e in kernels) / n}
+    print(f"MoE MLP per decode step [{cfg.name}] [{card}]: " + json.dumps(m))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"  device ms/layer {e.self_device_time_total / n / 1e3:8.3f}"
+              f"  launches/layer {e.count / n:6.1f}  {e.key[:90]}")
+    return m
+
+
+def moe_config_phase(card, cfg, params, dense_syncs):
+    """Phase "moe config NAME": the Llama prompt set served twice (equal
+    streams), an instance kill (streams equal failure-free), the decode
+    profile; the synchronizing calls in one decode step, which must be as
+    many as the dense Llama step's; the MoE MLP's device time. Returns
+    (launches, prompts, their streams)."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in SERVE_PROMPT_LENS]
+    prompts.append(list(prompts[1]))          # the same prompt twice
+    check(block_bytes(cfg, False) == cfg.n_layers * 65_536, "block bytes")
+    launches, _, profile, streams = run_path(
+        card, cfg, EngineConfig(max_slots=8, max_seq=256), PA, PA8,
+        cfg.name, prompts, params=params, repeat=True)
+    syncs = profile["syncs_per_step"]
+    print(f"[{cfg.name}] synchronizing calls in one decode step: {syncs} "
+          f"(dense llama3-8b step: {dense_syncs})")
+    check(syncs == dense_syncs, f"the MoE decode step makes {syncs} "
+          f"synchronizing calls, the dense step {dense_syncs}")
+    moe_mlp_profile(card, cfg, params)
+    return launches, prompts, streams
+
+
+def moe_invariants_phase(card, cfg, params, prompts, streams) -> dict:
+    """Phase "moe invariants NAME", every stream bit for bit: chunked
+    prefill (chunks of 64) against the monolithic streams of the config
+    phase; the shared-prefix set (primer first) with the prefix cache
+    against cold serving; the int8 pool with chunks of 64 through an
+    instance kill against the same path without it, and that path's
+    decode profile. Returns each kernel's launches."""
+    label = f"moe invariants {cfg.name}"
+    out = {"paged_attention": 0, "paged_attention_int8": 0}
+    (got, _, _, _), n = counted(
+        label, "chunked prefill", lambda: engine_run(
+            cfg, params, EngineConfig(max_slots=8, max_seq=256,
+                                      prefill_chunk=64), [prompts], 32),
+        PA, PA8, cfg.n_layers)
+    out["paged_attention"] += n
+    check(got == streams, "chunked prefill (chunks of 64) streams differ "
+          "from monolithic prefill")
+    print(f"[{label}] chunked prefill (chunks of 64): all {len(got)} "
+          "streams equal monolithic prefill")
+    ps = shared_prefix_set(cfg)
+    waves = [[ps.primer], ps.batch + [ps.xbucket] + ps.drill]
+    runs = {}
+    for cache in (False, True):
+        (got, _, _, eng), n = counted(
+            label, f"shared prefix (prefix_cache={cache})",
+            lambda: engine_run(cfg, params,
+                               prefix_ecfg(cfg, prefix_cache=cache), waves,
+                               NEW_TOKENS), PA, PA8, cfg.n_layers)
+        out["paged_attention"] += n
+        runs[cache] = got, eng.prefix_stats()
+        del eng
+    stats = runs[True][1]
+    check(runs[True][0] == runs[False][0], "prefix-cached streams differ "
+          "from cold serving")
+    check(stats["prefix_cached_tokens"] > 0, "no prefix-cache hit")
+    print(f"[{label}] prefix cache: all {len(runs[True][0])} streams equal "
+          f"cold; {stats['prefix_cached_tokens']} of "
+          f"{stats['prefill_total_tokens']} prompt tokens from cached pages")
+    ecfg = EngineConfig(max_slots=8, max_seq=256, kv_quant=True,
+                        prefill_chunk=64)
+    (want, _, _, eng), n = counted(
+        label, "int8 + chunks", lambda: engine_run(cfg, params, ecfg,
+                                                   [prompts], 32),
+        PA8, PA, cfg.n_layers)
+    out["paged_attention_int8"] += n
+    phase(f"decode profile ({cfg.name}, int8)")
+    decode_profile(eng, card, PA8)
+    del eng
+    (got, reqs, _, _), n = counted(
+        label, "int8 + chunks, instance kill",
+        lambda: engine_run(cfg, params, ecfg, [prompts], 32,
+                           kill=busiest_decoding), PA8, PA, cfg.n_layers)
+    out["paged_attention_int8"] += n
+    migrations = [r.n_migrations for r in reqs]
+    check(max(migrations) >= 1, "no request migrated")
+    check(got == want, "int8 + chunked streams through a kill differ from "
+          "the same path without it")
+    print(f"[{label}] int8 pool, chunks of 64, instance kill: all "
+          f"{len(got)} streams equal the failure-free run; migrations "
+          f"{migrations}, retries {[r.n_retries for r in reqs]}")
+    return out
+
+
+def moe_window_phase(card, cfg, params) -> int:
+    """Phase "moe window NAME": two prompts of 4000 tokens, 128 greedy
+    tokens each, so positions pass the 4096-token window and pages
+    recycle; then again with the instance decoding most killed just after
+    the first page is retired. Every stream equals the failure-free run,
+    retirements ran and no request held more than ceil(4096/16) + 1 = 257
+    pages. Returns the bf16 kernel's launches."""
+    label = f"moe window {cfg.name}"
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, cfg.vocab_size, WINDOW_PROMPT).tolist()
+               for _ in range(2)]
+    ecfg = EngineConfig(max_slots=2, max_seq=WINDOW_PROMPT + WINDOW_NEW)
+    ring = -(-cfg.sliding_window // cfg.page_size) + 1
+    t0 = time.perf_counter()
+    (want, _, peak, eng), n = counted(
+        label, "failure-free", lambda: engine_run(cfg, params, ecfg,
+                                                  [prompts], WINDOW_NEW),
+        PA, PA8, cfg.n_layers)
+    wall = time.perf_counter() - t0
+    retired = eng.retire_msgs_total
+    del eng
+    check(all(len(t) == WINDOW_NEW for t in want), "stream length")
+    check(0 < peak <= ring, f"a request held {peak} pages (ring {ring})")
+    check(retired > 0, "no recycled page was retired")
+    print(f"[{label}] failure-free [{card}]: {wall:.1f} s wall; most pages "
+          f"held by one request {peak} (ring {ring}); retire messages "
+          f"{retired}")
+    slid = lambda e: busiest_decoding(e) if e.retire_msgs_total else None
+    (got, reqs, peak, eng), n2 = counted(
+        label, "instance kill after the slide",
+        lambda: engine_run(cfg, params, ecfg, [prompts], WINDOW_NEW,
+                           kill=slid), PA, PA8, cfg.n_layers)
+    check(peak <= ring, f"a request held {peak} pages (ring {ring})")
+    check(max(r.n_migrations for r in reqs) >= 1, "no request migrated")
+    check(got == want, "streams through the kill differ from failure-free")
+    print(f"[{label}] kill after the slide: both streams equal failure-free;"
+          f" migrations {[r.n_migrations for r in reqs]}, retries "
+          f"{[r.n_retries for r in reqs]}; retire messages "
+          f"{eng.retire_msgs_total}")
+    return n + n2
+
+
+def moe_phases(card, dense_syncs, configs=MOE_CONFIGS) -> dict:
+    """mixtral-8x7b (config, invariants, window) and dbrx-132b (config)
+    at full width, cut in depth, each on fresh random weights
+    (torch.Generator seed 0) and freed before the next. Returns each
+    attention kernel's launches."""
+    out = {"paged_attention": 0, "paged_attention_int8": 0}
+    for name, depth, invariants in configs:
+        full = get_config(name)
+        cfg = dataclasses.replace(full, n_layers=depth)
+        phase(f"moe config {name}")
+        before = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = api.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+        torch.cuda.synchronize()
+        print(f"model {name}: {depth} of {full.n_layers} layers (depth cut: "
+              f"{MOE_DEPTH_CUTS[name]}), d_model {cfg.d_model}, heads "
+              f"{cfg.n_heads}/{cfg.n_kv_heads} (rep {cfg.q_per_kv}), "
+              f"d_ff {cfg.d_ff}, {cfg.n_experts} experts top-{cfg.top_k}, "
+              f"window {cfg.sliding_window}, vocab {cfg.vocab_size}, "
+              f"{cfg.n_params() / 1e9:.2f} B params "
+              f"({2 * cfg.n_params() / 1e9:.1f} GB bf16), "
+              f"{cfg.n_active_params() / 1e9:.2f} B active; random weights "
+              f"made in {time.perf_counter() - t0:.1f} s ({before:.1f} GiB "
+              "allocated before)")
+        n, prompts, streams = moe_config_phase(card, cfg, params,
+                                               dense_syncs)
+        out["paged_attention"] += n
+        if invariants:
+            phase(f"moe invariants {name}")
+            for kernel, k in moe_invariants_phase(card, cfg, params, prompts,
+                                                  streams).items():
+                out[kernel] += k
+        if cfg.sliding_window:
+            phase(f"moe window {name}")
+            out["paged_attention"] += moe_window_phase(card, cfg, params)
+        card_gib = torch.cuda.get_device_properties(0).total_memory / 2**30
+        print(f"[{name}] {depth} layers: peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+              f"allocated, {torch.cuda.max_memory_reserved() / 2**30:.2f} "
+              f"GiB reserved, of the card's {card_gib:.2f} GiB [{card}]")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def serving_phases(card: str) -> dict:
     """The bf16 path, the int8 + chunked-prefill path, the prefix-cache and
     disaggregated paths, then the 8-instance fleet, all on the same
-    Llama-3.1-8B weights; then the other dense configs. Returns each
-    kernel's launches on its paths."""
+    Llama-3.1-8B weights; then the other dense configs and the MoE
+    configs. Returns each kernel's launches on its paths."""
     cfg = get_config("llama3-8b")
     print(f"model {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"vocab {cfg.vocab_size}, {cfg.n_params() / 1e9:.2f} B params, "
@@ -1930,7 +2265,7 @@ def serving_phases(card: str) -> dict:
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
                for n in SERVE_PROMPT_LENS]
     prompts.append(list(prompts[1]))          # the same prompt twice
-    bf16, params = run_path(
+    bf16, params, profile, _ = run_path(
         card, cfg, EngineConfig(max_slots=8, max_seq=256), PA, PA8, "bf16",
         prompts)
     # same weights, int8 pool, chunks of 64: the 200-token prompt runs 4
@@ -1944,11 +2279,13 @@ def serving_phases(card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     launches = dense_config_phases(card)
+    for name, n in moe_phases(card, profile["syncs_per_step"]).items():
+        launches[name] += n
     return {"paged_attention": bf16 + launches["paged_attention"],
             "paged_attention_int8": int8 + launches["paged_attention_int8"]}
 
 
-# -- 20. mamba2 generation ----------------------------------------------------
+# -- 23. mamba2 generation ----------------------------------------------------
 
 @contextlib.contextmanager
 def plain_scan_calls():

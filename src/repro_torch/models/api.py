@@ -7,10 +7,12 @@ Every family the port brings exposes:
   prefill(cfg, params, tokens)         -> (last logits, cache, pos)
   decode_step(cfg, params, token, cache, pos) -> (logits, cache)
 
-So far that is the SSM family (Mamba-2). The dense family is served through
-the paged engine (``serving/engine.py``); its non-paged model API, like the
-other families', is still to port and raises ``NotImplementedError`` naming
-its ROADMAP.md item. ``loss`` and ``next_token_loss`` come with training.
+So far those are the MoE family (Mixtral, DBRX) and the SSM family
+(Mamba-2). The dense family is served through the paged engine
+(``serving/engine.py``) and ``init_params`` initialises it; its non-paged
+model API, like the other families', is still to port and raises
+``NotImplementedError`` naming its ROADMAP.md item. ``loss`` and
+``next_token_loss`` come with training.
 
 ``decode_capacity(cfg, seq_len)`` centralizes the long-context policy:
 ring-buffer window for SWA / long-context dense variants, full-length cache
@@ -21,14 +23,13 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import ssm
+from repro_torch.models import moe, ssm, transformer
 
-_FAMILIES = {"ssm": ssm}
+_FAMILIES = {"moe": moe, "ssm": ssm}
 
 # families whose model API is still to port -> the ROADMAP.md item
 _TO_PORT = {
     "dense": "Queue 1 item 13 (the non-paged dense model API)",
-    "moe": "Queue 1 item 10 (models/moe.py)",
     "hybrid": "Queue 1 item 11 (models/hybrid.py)",
     "vlm": "Queue 1 item 13 (models/vlm.py)",
     "audio": "Queue 1 item 13 (models/encoder.py)",
@@ -44,8 +45,10 @@ def family(cfg: ModelConfig):
 
 
 def init_params(cfg: ModelConfig, generator, device="cuda", dtype=None):
-    return family(cfg).init_params(cfg, generator, device=device,
-                                   dtype=dtype)
+    """Random params of any family the port serves or runs (the dense
+    family's init comes before its model API)."""
+    mod = transformer if cfg.arch_type == "dense" else family(cfg)
+    return mod.init_params(cfg, generator, device=device, dtype=dtype)
 
 
 def forward(cfg: ModelConfig, params, tokens, **kw):
@@ -88,10 +91,23 @@ def prefill(cfg: ModelConfig, params, batch: Dict[str, Any],
             seq_budget: Optional[int] = None, q_chunk: int = 1024):
     """Returns (last-token logits, cache, pos). ``batch["tokens"]``: (B, S)
     integer tensor."""
-    mod = family(cfg)                   # the ssm family, so far
-    return mod.prefill(cfg, params, batch["tokens"], chunk=cfg.ssm_chunk)
+    mod = family(cfg)
+    if cfg.arch_type == "ssm":
+        return mod.prefill(cfg, params, batch["tokens"], chunk=cfg.ssm_chunk)
+    s = batch["tokens"].shape[1]
+    total = seq_budget or s
+    window = decode_window(cfg, total)
+    cap = window if window else total
+    # dense / moe: a long-context window overrides full attention; a
+    # native sliding window is the model's own
+    wo = window if (window and not cfg.sliding_window) else None
+    return mod.prefill(cfg, params, batch["tokens"], capacity=cap,
+                       window_override=wo, q_chunk=q_chunk)
 
 
 def decode_step(cfg: ModelConfig, params, token, cache, pos, seq_len: int):
-    mod = family(cfg)                   # the ssm family, so far
-    return mod.decode_step(cfg, params, token, cache, pos)
+    mod = family(cfg)
+    if cfg.arch_type == "ssm":
+        return mod.decode_step(cfg, params, token, cache, pos)
+    return mod.decode_step(cfg, params, token, cache, pos,
+                           window=decode_window(cfg, seq_len))

@@ -67,6 +67,22 @@ def rms_norm(x, weight, eps: float = 1e-5):
     return (x * weight.float()).to(dt)
 
 
+def row_matmul(x, w, rows: int = 0):
+    """``x @ w`` in products of at most ``rows`` rows of ``x`` (all dims
+    but the last are rows); ``rows=0`` is one product. cuBLAS picks its
+    kernel, and with it the order of each dot product's sum, by the row
+    count, so a row's bits depend on how many rows share the product:
+    fixed-size blocks make them depend on the row alone. A prefill whose
+    row count is a multiple of ``rows`` then gives every row the bits a
+    chunked prefill of ``rows``-row chunks gives it."""
+    n = x[..., 0].numel()
+    if not rows or n <= rows:
+        return x @ w
+    flat = x.reshape(n, x.shape[-1])
+    out = torch.cat([flat[i:i + rows] @ w for i in range(0, n, rows)])
+    return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
 # --------------------------------------------------------------------------
 # RoPE
 # --------------------------------------------------------------------------
@@ -160,17 +176,29 @@ def attention(q, k, v, *, causal: bool, window: int = 0,
     return out.transpose(1, 2).to(q.dtype)                  # (B,Sq,H,D)
 
 
+def kv_cache_update(cache, new, slot):
+    """Write ``new`` (B,1,K,D) at sequence position ``slot`` (an int or a
+    0-d integer tensor) of ``cache`` (B,C,K,D) through a one-hot select,
+    returning a new cache (the reference's form: elementwise, no indexed
+    write)."""
+    c = cache.shape[1]
+    onehot = (torch.arange(c, device=cache.device) == slot)[None, :, None,
+                                                            None]
+    return torch.where(onehot, new.to(cache.dtype), cache)
+
+
 # --------------------------------------------------------------------------
 # attention block params + apply
 # --------------------------------------------------------------------------
 
-def qkv_proj(p, cfg, x, positions):
-    """x: (B,S,d) -> q (B,S,H,D), k/v (B,S,K,D), with RoPE applied."""
+def qkv_proj(p, cfg, x, positions, rows: int = 0):
+    """x: (B,S,d) -> q (B,S,H,D), k/v (B,S,K,D), with RoPE applied; the
+    projections in products of ``rows`` rows (``row_matmul``)."""
     b, s, _ = x.shape
     h, k, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = x @ p["wq"]
-    kk = x @ p["wk"]
-    vv = x @ p["wv"]
+    q = row_matmul(x, p["wq"], rows)
+    kk = row_matmul(x, p["wk"], rows)
+    vv = row_matmul(x, p["wv"], rows)
     if cfg.qkv_bias:
         q, kk, vv = q + p["bq"], kk + p["bk"], vv + p["bv"]
     q = q.reshape(b, s, h, hd)
@@ -181,17 +209,19 @@ def qkv_proj(p, cfg, x, positions):
     return q, kk, vv
 
 
-def attn_out(p, o):
+def attn_out(p, o, rows: int = 0):
     b, s, h, d = o.shape
-    return o.reshape(b, s, h * d) @ p["wo"]
+    return row_matmul(o.reshape(b, s, h * d), p["wo"], rows)
 
 
 # --------------------------------------------------------------------------
 # SwiGLU MLP
 # --------------------------------------------------------------------------
 
-def mlp(p, x):
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+def mlp(p, x, rows: int = 0):
+    gate = F.silu(row_matmul(x, p["w_gate"], rows))
+    return row_matmul(gate * row_matmul(x, p["w_up"], rows), p["w_down"],
+                      rows)
 
 
 # --------------------------------------------------------------------------

@@ -1,8 +1,10 @@
-"""Paged decode fast path (dense family): the serving engine's hot loop over
-a block-paged KV pool (serving/kvcache.py), attending through the paged-
-attention kernel (kernels/ops.py: the CUDA kernel on the card, its plain
-version on the CPU).
+"""Paged decode fast path (dense and MoE families): the serving engine's
+hot loop over a block-paged KV pool (serving/kvcache.py), attending through
+the paged-attention kernel (kernels/ops.py: the CUDA kernel on the card,
+its plain version on the CPU).
 
+The families differ only in the MLP of each layer (``mlp_apply``): MoE
+routes through its experts, drop-free and batch-invariant (models/moe.py).
 Pool layout is the kernel's native layout with a leading stacked-layer
 axis: k_pages / v_pages : (L, K, n_blocks, page, D). A Python loop over L
 hands each layer's (K, P, page, D) view straight to the kernel.
@@ -31,16 +33,36 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.paged_attention_int8 import quantize_pages
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models.transformer import layer_params
 from repro_torch.serving.sampling import sample
 
 # families the port's paged serving path covers so far
-PAGED_FAMILIES = ("dense",)
+PAGED_FAMILIES = ("dense", "moe")
+
+# prefill runs its matrix products over the prompt's tokens in blocks of
+# this many rows, and its attention in query chunks of as many: every
+# product then has the same shape in a monolithic prefill and in a chunked
+# one whose chunks are a multiple of it, so each row gets the same bits
+# either way (on the card, cuBLAS's summation order depends on the row
+# count; a routed MoE token can change experts over one bit)
+PREFILL_ROWS = 64
 
 
 def kv_layer_indices(cfg):
-    """Model layer indices that carry paged KV: every layer (dense)."""
+    """Model layer indices that carry paged KV: every layer (dense, MoE)."""
     return tuple(range(cfg.n_layers))
+
+
+def mlp_apply(cfg, p, h, *, decode: bool):
+    """Per-family MLP for one layer of the paged path. ``p`` is that
+    layer's param dict; MoE routes through the experts (drop-free — see
+    models/moe.py). Prefill's products run in PREFILL_ROWS-row blocks."""
+    rows = 0 if decode else PREFILL_ROWS
+    if cfg.arch_type == "moe":
+        return M.decode_mlp(cfg, p, h) if decode \
+            else M.serving_prefill_mlp(cfg, p, h, rows)
+    return L.mlp(p["mlp"], h, rows)
 
 
 def next_bucket(n: int, lo: int = 8) -> int:
@@ -80,8 +102,9 @@ def init_pages(cfg, n_blocks: int, page_size: int, dtype=None,
 # --------------------------------------------------------------------------
 
 def prefill_bucketed(cfg, params, tokens, true_len: int, *,
-                     q_chunk: int = 1024):
-    """Prompt forward over bucket-padded tokens.
+                     q_chunk: int = PREFILL_ROWS):
+    """Prompt forward over bucket-padded tokens, its products in blocks of
+    PREFILL_ROWS rows and its attention in ``q_chunk`` query rows.
 
     tokens: (1, S_bucket) int32, positions [true_len, S_bucket) are padding.
     Returns (logits (1, V) f32 at position true_len-1, k, v (L, S_bucket, K,
@@ -97,12 +120,12 @@ def prefill_bucketed(cfg, params, tokens, true_len: int, *,
     for i in range(cfg.n_layers):
         p = layer_params(params["layers"], i)
         h = L.rms_norm(x, p["norm_attn"], cfg.norm_eps)
-        q, k, v = L.qkv_proj(p["attn"], cfg, h, positions)
+        q, k, v = L.qkv_proj(p["attn"], cfg, h, positions, PREFILL_ROWS)
         o = L.attention(q, k, v, causal=True, window=cfg.sliding_window,
                         q_chunk=q_chunk)
-        x = x + L.attn_out(p["attn"], o)
+        x = x + L.attn_out(p["attn"], o, PREFILL_ROWS)
         h = L.rms_norm(x, p["norm_mlp"], cfg.norm_eps)
-        x = x + L.mlp(p["mlp"], h)
+        x = x + mlp_apply(cfg, p, h, decode=False)
         ks.append(k[0].to(kv_dtype(cfg)))
         vs.append(v[0].to(kv_dtype(cfg)))
     x = L.rms_norm(x, params["embed"]["norm_f"], cfg.norm_eps)
@@ -145,7 +168,7 @@ def seed_chunk_buffers(k_buf, v_buf, k_pages, v_pages, slots):
 
 
 def prefill_chunk(cfg, params, tokens, start: int, take: int, k_buf, v_buf,
-                  *, q_chunk: int = 1024):
+                  *, q_chunk: int = PREFILL_ROWS):
     """One chunk of a chunked prefill.
 
     tokens: (1, C) int32 — prompt rows at absolute positions
@@ -158,7 +181,9 @@ def prefill_chunk(cfg, params, tokens, start: int, take: int, k_buf, v_buf,
     Each layer writes its buffer rows [start, start + C), then attends the
     C query rows against the WHOLE buffer with ``q_offset=start``: masked
     (future) entries contribute exact zeros. Returns (logits (1, V) f32 at
-    absolute position start + take - 1, k_buf, v_buf).
+    absolute position start + take - 1, k_buf, v_buf). Products and
+    attention are blocked as in ``prefill_bucketed``, so a chunk size that
+    is a multiple of PREFILL_ROWS gives its rows the same bits.
     """
     x = L.embed(params["embed"], tokens)
     c = x.shape[1]
@@ -168,15 +193,15 @@ def prefill_chunk(cfg, params, tokens, start: int, take: int, k_buf, v_buf,
     for i in range(cfg.n_layers):
         p = layer_params(params["layers"], i)
         h = L.rms_norm(x, p["norm_attn"], cfg.norm_eps)
-        q, k, v = L.qkv_proj(p["attn"], cfg, h, positions)
+        q, k, v = L.qkv_proj(p["attn"], cfg, h, positions, PREFILL_ROWS)
         k_buf[i, start:start + c] = k[0]
         v_buf[i, start:start + c] = v[0]
         o = L.attention(q, k_buf[i][None], v_buf[i][None], causal=True,
                         window=cfg.sliding_window, q_offset=start,
                         q_chunk=q_chunk)
-        x = x + L.attn_out(p["attn"], o)
+        x = x + L.attn_out(p["attn"], o, PREFILL_ROWS)
         h = L.rms_norm(x, p["norm_mlp"], cfg.norm_eps)
-        x = x + L.mlp(p["mlp"], h)
+        x = x + mlp_apply(cfg, p, h, decode=False)
     x = L.rms_norm(x, params["embed"]["norm_f"], cfg.norm_eps)
     xt = x[:, take - 1:take]
     logits = L.unembed(params["embed"], cfg, xt.float())
@@ -208,7 +233,7 @@ def _paged_attn_layer(cfg, p, x, kl, vl, block_tables, lengths, dst_block,
     views of the pool), attend through the paged kernel, apply the MLP.
     With ``kl_scale``/``vl_scale`` the pool is int8: the new rows are
     quantized (per-token scales) before the scatter, and attention runs
-    through the int8 kernel."""
+    through the int8 kernel. The family's MLP follows (``mlp_apply``)."""
     h = L.rms_norm(x, p["norm_attn"], cfg.norm_eps)
     q, k, v = L.qkv_proj(p["attn"], cfg, h, positions)    # (B,1,{H,K},D)
     k_rows = k[:, 0].transpose(0, 1)                       # (K, B, D)
@@ -228,7 +253,7 @@ def _paged_attn_layer(cfg, p, x, kl, vl, block_tables, lengths, dst_block,
         o = ops.paged_attention(q0, kl, vl, block_tables, lengths, starts)
     x = x + L.attn_out(p["attn"], o[:, None].to(x.dtype))
     h = L.rms_norm(x, p["norm_mlp"], cfg.norm_eps)
-    return x + L.mlp(p["mlp"], h)
+    return x + mlp_apply(cfg, p, h, decode=True)
 
 
 def _sample_head(cfg, params, x, generator, temperature):

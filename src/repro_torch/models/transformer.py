@@ -52,6 +52,39 @@ def init_params(cfg, generator: torch.Generator, device="cuda", dtype=None):
     return {"embed": emb, "layers": layers}
 
 
+# --------------------------------------------------------------------------
+# KV cache (model-level; the serving engine uses the paged pool)
+# --------------------------------------------------------------------------
+
+def kv_store_dtype(cfg) -> torch.dtype:
+    """Dtype KV rows are stored in (int8 caches keep quantized payloads)."""
+    return torch.int8 if cfg.kv_dtype == "int8" else L.torch_dtype(
+        cfg.kv_dtype)
+
+
+def init_cache(cfg, batch: int, capacity: int, dtype=None, device="cuda"):
+    """Zeroed (L, batch, capacity, K, D) k/v; capacity = max sequence
+    length (full attention) or the window (ring-buffer decode). An int8
+    config adds (L, batch, capacity, K, 1) bf16 scales."""
+    dtype = dtype or kv_store_dtype(cfg)
+    shape = (cfg.n_layers, batch, capacity, cfg.n_kv_heads, cfg.head_dim)
+    cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if cfg.kv_dtype == "int8":
+        sshape = shape[:-1] + (1,)
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.zeros(sshape, dtype=torch.bfloat16,
+                                      device=device)
+    return cache
+
+
+def _pad_seq(x, pad: int):
+    """Zero rows appended to the sequence axis of (B, S, K, D)."""
+    if pad == 0:
+        return x
+    return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+
+
 def layer_params(layers, i: int):
     """Layer ``i``'s param dict: a view of the stacked leaves at index i."""
     return {key: layer_params(val, i) if isinstance(val, dict) else val[i]

@@ -44,8 +44,10 @@ stay model-sharded over the surviving shards, the bytes per shard) is
 computed over shapes (``distributed/sharding.py``) and reported, not
 executed; decode on the surviving slots is unchanged.
 
-This port serves the dense family with monolithic or chunked prefill, a
-bf16 or int8 KV pool, prefix caching and prefill/decode disaggregation.
+This port serves the dense and MoE families (``paged_decode.PAGED_FAMILIES``)
+with monolithic or chunked prefill, a bf16 or int8 KV pool, prefix caching
+and prefill/decode disaggregation. The families ride one code path and
+differ only in each layer's MLP (``paged_decode.mlp_apply``).
 """
 from __future__ import annotations
 
@@ -57,9 +59,9 @@ import numpy as np
 import torch
 
 from repro_torch.distributed import sharding as SH
+from repro_torch.models import api
 from repro_torch.models import layers as L
 from repro_torch.models import paged_decode as PD
-from repro_torch.models import transformer
 from repro_torch.serving.api_types import FaultSpec
 from repro_torch.serving.controlplane import ControlPlane
 from repro_torch.serving.kvcache import PagedKVPool
@@ -165,7 +167,7 @@ class FamilyExecutor:
 
 
 class RealInstance:
-    """One serving instance: the dense family over a paged KV pool."""
+    """One serving instance: a paged-family model over a paged KV pool."""
 
     def __init__(self, cfg, params, ecfg: EngineConfig, instance_id: int = 0,
                  executor: Optional[FamilyExecutor] = None,
@@ -788,7 +790,7 @@ class RealEngine:
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
-            params = transformer.init_params(cfg, gen, device=self.device)
+            params = api.init_params(cfg, gen, device=self.device)
         self.params = params
         # prefill/decode disaggregation: the first max(1, n//2) instances
         # take the prefill role, the rest decode; without it every

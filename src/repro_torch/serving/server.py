@@ -10,7 +10,10 @@ versioned fault-injection admin API (``POST /v1/admin/fault`` /
 
 The model runs at the config's full size on the card (``--device cuda``,
 the default); ``--device cpu --reduced`` serves the reduced config on the
-CPU. ``--kv-quant`` serves from an int8 KV pool and ``--prefill-chunk N``
+CPU; ``--arch`` picks any config the port serves (the dense family,
+``mixtral-8x7b``, ``dbrx-132b``) and ``--layers N`` serves its first N
+layers at full width, for a model deeper than one card holds. ``--kv-quant``
+serves from an int8 KV pool and ``--prefill-chunk N``
 runs prompts in chunks of N tokens interleaved with decode steps.
 ``--prefix-cache`` shares fully-covered prompt pages between requests by
 reference, and ``--disaggregate`` splits the instances into prefill and
@@ -25,6 +28,7 @@ combine freely.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import threading
 import time
@@ -352,6 +356,10 @@ def main():
     ap.add_argument("--reduced", action="store_true",
                     help="serve the config's reduced variant (2 layers, "
                          "d_model 256) — the size the CPU can run")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="serve only the first N layers, at full width "
+                         "(0 = all): a model deeper than one card holds, "
+                         "e.g. mixtral-8x7b at 26 of its 32 layers")
     ap.add_argument("--kv-quant", action="store_true",
                     help="int8 KV pool: quantized pages + scales, int8 "
                          "decode kernel, ~2x smaller replication messages")
@@ -393,6 +401,8 @@ def main():
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     if args.disaggregate and args.prefill_chunk <= 0:
         args.prefill_chunk = 8      # streaming needs chunked prefill
     ecfg = EngineConfig(kv_quant=args.kv_quant,

@@ -24,8 +24,8 @@ from repro.models import api  # noqa: E402
 from repro.models import paged_decode as JPD  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import from_jax_numpy  # noqa: E402
+from repro_torch.models import api as tapi  # noqa: E402
 from repro_torch.models import paged_decode as PD  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serving.engine import EngineConfig, RealEngine  # noqa: E402
 from repro_torch.serving.request import Request, RequestState  # noqa: E402
 
@@ -47,13 +47,18 @@ def _chunks(n, C, toks):
         yield c0, min(C, n - c0), toks[:, c0:c0 + C]
 
 
-def test_prefill_chunk_matches_reference():
+ARCHS = ["llama3-8b", "mixtral-8x7b"]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_chunk_matches_reference(arch):
     """Chunks of 8 over a 27-token prompt (3 full + a ragged 3), float32 on
     converted weights: the carry buffers and each chunk's logits agree with
     the reference's within 1e-4 (f32 on both sides, different summation
-    orders), and the buffers have the reference's shape and dtype."""
-    jcfg = dataclasses.replace(jax_config("llama3-8b").reduced(), **F32)
-    cfg = dataclasses.replace(get_config("llama3-8b").reduced(), **F32)
+    orders), and the buffers have the reference's shape and dtype; dense
+    and MoE."""
+    jcfg = dataclasses.replace(jax_config(arch).reduced(), **F32)
+    cfg = dataclasses.replace(get_config(arch).reduced(), **F32)
     jp = api.init_params(jcfg, jax.random.PRNGKey(0))
     tp = from_jax_numpy(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
     n, C = 27, 8
@@ -78,15 +83,17 @@ def test_prefill_chunk_matches_reference():
                                    rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-def test_chunk_prefill_matches_monolithic(dtype):
+def test_chunk_prefill_matches_monolithic(dtype, arch):
     """Model level, torch against torch: chunks of 8 (a ragged final chunk
     included) reproduce the monolithic prefill's KV rows in the pool's
-    storage dtype and its last-position logits, bit for bit."""
-    cfg = dataclasses.replace(get_config("llama3-8b").reduced(), dtype=dtype,
+    storage dtype and its last-position logits, bit for bit (dense and
+    routed MoE)."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype=dtype,
                               kv_dtype=dtype)
-    params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
-                                     device="cpu")
+    params = tapi.init_params(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
     n, C = 27, 8
     bucket = PD.next_bucket(n, lo=cfg.page_size)
     toks = np.zeros((1, bucket), np.int32)
@@ -140,13 +147,14 @@ def _engine_run(cfg, chunk, kv_quant, lens=(27, 27), out=6):
     return [r.output_tokens for r in reqs], pages
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("kv_quant", [False, True])
-def test_engine_chunked_prefill_equivalent(kv_quant):
+def test_engine_chunked_prefill_equivalent(kv_quant, arch):
     """Engine level: prefill_chunk=8 vs monolithic — identical token streams
     AND byte-identical prompt pages in the pool (raw int8 payload and scales
     when quantized): the incremental page writes land exactly the bytes the
     single bulk write lands."""
-    cfg = get_config("llama3-8b").reduced()
+    cfg = get_config(arch).reduced()
     mono_toks, mono_pages = _engine_run(cfg, 0, kv_quant)
     chunk_toks, chunk_pages = _engine_run(cfg, 8, kv_quant)
     assert chunk_toks == mono_toks

@@ -26,9 +26,12 @@ def _leaves(tree, prefix=()):
         yield prefix, tree
 
 
+@pytest.mark.parametrize("name", ["llama3-8b", "mixtral-8x7b", "dbrx-132b"])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-def test_conversion_is_bit_exact(dtype):
-    jcfg = dataclasses.replace(jax_config("llama3-8b").reduced(), dtype=dtype)
+def test_conversion_is_bit_exact(dtype, name):
+    """Every leaf bit for bit in the config's dtype; the MoE tree's f32
+    router and (L, E, d, f) expert stacks too."""
+    jcfg = dataclasses.replace(jax_config(name).reduced(), dtype=dtype)
     jparams = api.init_params(jcfg, jax.random.PRNGKey(0))
     tparams = from_jax_numpy(jax.tree_util.tree_map(np.asarray, jparams),
                              device="cpu")
@@ -37,11 +40,13 @@ def test_conversion_is_bit_exact(dtype):
     assert jl.keys() == tl.keys()
     for path, jv in jl.items():
         tv = tl[path]
-        assert tv.dtype == getattr(torch, dtype), path
+        leaf_dtype = "float32" if path[-1] == "router" else dtype
+        assert tv.dtype == getattr(torch, leaf_dtype), path
         assert tuple(tv.shape) == tuple(jv.shape), path
         want = np.asarray(jv)
-        bits = np.int16 if dtype == "bfloat16" else np.int32
-        got = tv.view(torch.int16 if dtype == "bfloat16" else torch.int32)
+        half = leaf_dtype == "bfloat16"
+        bits = np.int16 if half else np.int32
+        got = tv.view(torch.int16 if half else torch.int32)
         np.testing.assert_array_equal(got.numpy(), want.view(bits),
                                       err_msg=str(path))
 

@@ -37,8 +37,8 @@ def _mk_reqs(cfg, lens, out, seed=0):
             for i, n in enumerate(lens)]
 
 
-def _engine(kv_quant=False, n_instances=2, **kw):
-    cfg = get_config("llama3-8b").reduced()
+def _engine(kv_quant=False, n_instances=2, arch="llama3-8b", **kw):
+    cfg = get_config(arch).reduced()
     return RealEngine(cfg, EngineConfig(max_slots=4, max_seq=64,
                                         prefill_chunk=8, kv_quant=kv_quant,
                                         **kw),
@@ -129,10 +129,11 @@ def _capture_pages(eng, req, kv_quant):
     return None, None
 
 
-def _run(kv_quant, disagg, lens=(27, 8, 27), out=6, capture_rid=0):
+def _run(kv_quant, disagg, lens=(27, 8, 27), out=6, capture_rid=0,
+         arch="llama3-8b"):
     """Run to completion; snapshot the captured request's prompt pages the
     moment it enters DECODE — on the decode-role peer when disaggregated."""
-    eng = _engine(kv_quant, disaggregate=disagg)
+    eng = _engine(kv_quant, disaggregate=disagg, arch=arch)
     reqs = _mk_reqs(eng.cfg, lens, out)
     for r in reqs:
         eng.submit(r)
@@ -150,14 +151,15 @@ def _run(kv_quant, disagg, lens=(27, 8, 27), out=6, capture_rid=0):
     return eng, reqs, seated_on, pages
 
 
+@pytest.mark.parametrize("arch", ["llama3-8b", "mixtral-8x7b"])
 @pytest.mark.parametrize("kv_quant", [False, True])
-def test_disagg_byte_identical_to_colocated(kv_quant):
+def test_disagg_byte_identical_to_colocated(kv_quant, arch):
     """Disaggregated serving emits the exact token streams of colocated
     serving, and the prompt pages the decode instance received over the
     wire are byte-identical to the pages colocated prefill writes locally
-    (raw int8 payload + scales on the int8 pool)."""
-    _, colo, _, colo_pages = _run(kv_quant, disagg=False)
-    eng, dis, seated_on, dis_pages = _run(kv_quant, disagg=True)
+    (raw int8 payload + scales on the int8 pool); dense and MoE."""
+    _, colo, _, colo_pages = _run(kv_quant, disagg=False, arch=arch)
+    eng, dis, seated_on, dis_pages = _run(kv_quant, disagg=True, arch=arch)
     assert [r.output_tokens for r in dis] == \
         [r.output_tokens for r in colo]
     assert all(len(r.output_tokens) == 6 for r in dis)

@@ -27,7 +27,11 @@ F32 = dict(dtype="float32", kv_dtype="float32")
 
 @pytest.fixture(scope="module")
 def cfg():
-    return dataclasses.replace(get_config("llama3-8b").reduced(), **F32)
+    return _cfg("llama3-8b")
+
+
+def _cfg(arch):
+    return dataclasses.replace(get_config(arch).reduced(), **F32)
 
 
 def _prompts(vocab, n, seed=0, lo=5, hi=20):
@@ -52,11 +56,14 @@ def _engine(cfg, n_instances=2, **kw):
                       seed=0, device="cpu")
 
 
-def test_token_streams_match_reference_engine(cfg):
+@pytest.mark.parametrize("arch", ["llama3-8b", "mixtral-8x7b"])
+def test_token_streams_match_reference_engine(arch):
     """Slice-level parity: the same 4 prompts x 16 greedy tokens through
     the reference RealEngine and the port's, on the same weights, give
-    identical token streams (float32 isolates the algorithm)."""
-    jcfg = dataclasses.replace(jax_config("llama3-8b").reduced(), **F32)
+    identical token streams (float32 isolates the algorithm), dense and
+    MoE."""
+    cfg = _cfg(arch)
+    jcfg = dataclasses.replace(jax_config(arch).reduced(), **F32)
     max_seq, n_new = 64, 16
     jeng = JRealEngine(jcfg, JEngineConfig(max_slots=4, max_seq=max_seq,
                                            replicate=False),
@@ -79,13 +86,16 @@ def test_token_streams_match_reference_engine(cfg):
         assert got == want, f"request {i}: port != reference"
 
 
+@pytest.mark.parametrize("arch", ["llama3-8b", "mixtral-8x7b"])
 @pytest.mark.parametrize("repl_async", [True, False])
-def test_failover_byte_identical_from_promoted_blocks(cfg, repl_async):
+def test_failover_byte_identical_from_promoted_blocks(arch, repl_async):
     """Kill the busy instance mid-decode: every victim resumes on the ring
     target from PROMOTED replica blocks whose bytes equal the dead
     primary's last replicated state, and every token stream equals the
     failure-free run's — with copies shipped a step later (async) or in
-    the step that staged them."""
+    the step that staged them; dense and MoE."""
+    cfg = _cfg(arch)
+
     def run(fail: bool):
         eng = _engine(cfg, repl_async=repl_async)
         reqs = _reqs(cfg, 6)
@@ -261,16 +271,22 @@ def test_unported_knobs_raise(cfg):
                                                        max_seq=96, **kw)
 
 
-def test_windowed_serving_matches_reference_and_fails_over(cfg):
+@pytest.mark.parametrize("arch,window,n_new,kill_at", [
+    ("llama3-8b", 24, 40, 20),
+    ("mixtral-8x7b", 24, 40, 20),
+    ("mixtral-8x7b", 64, 80, 62)])       # mixtral's own reduced window
+def test_windowed_serving_matches_reference_and_fails_over(arch, window,
+                                                           n_new, kill_at):
     """Sliding-window serving past the window (page recycling, window-
     relative tables, the kernel's ``starts`` mask): greedy streams equal
     the reference engine's, residency stays within the window ring, and a
     kill mid-slide resumes byte-identically from the promoted window."""
-    window, n_new = 24, 40
+    cfg = _cfg(arch)
+    max_seq = n_new + 56
     wcfg = dataclasses.replace(cfg, sliding_window=window)
-    jcfg = dataclasses.replace(jax_config("llama3-8b").reduced(), **F32,
+    jcfg = dataclasses.replace(jax_config(arch).reduced(), **F32,
                                sliding_window=window)
-    jeng = JRealEngine(jcfg, JEngineConfig(max_slots=4, max_seq=96,
+    jeng = JRealEngine(jcfg, JEngineConfig(max_slots=4, max_seq=max_seq,
                                            replicate=False),
                        n_instances=1, seed=0)
     params = from_jax_numpy(jax.tree_util.tree_map(np.asarray, jeng.params),
@@ -289,7 +305,7 @@ def test_windowed_serving_matches_reference_and_fails_over(cfg):
     jeng.run(400)
 
     def run(fail: bool):
-        eng = RealEngine(wcfg, EngineConfig(max_slots=4, max_seq=96),
+        eng = RealEngine(wcfg, EngineConfig(max_slots=4, max_seq=max_seq),
                          n_instances=2, device="cpu", params=params)
         reqs = submit(eng, Request)
         peak = 0
@@ -297,7 +313,7 @@ def test_windowed_serving_matches_reference_and_fails_over(cfg):
             if not eng.has_pending():
                 break
             eng.step()
-            if fail and step == 20:
+            if fail and step == kill_at:
                 assert set(eng.fail_instance(0)) == {0}
             for inst in eng.instances:
                 for rid in inst.requests:

@@ -32,9 +32,10 @@ def _ids(kw):
     return "+".join(f"{k}={v}" for k, v in kw.items())
 
 
-@pytest.fixture(scope="module")
-def cfg():
-    return dataclasses.replace(get_config("llama3-8b").reduced(), **F32)
+# every knob on the dense config, both on the MoE one
+CASES = [pytest.param("llama3-8b", kw, id=_ids(kw)) for kw in KNOBS] + [
+    pytest.param("mixtral-8x7b", KNOBS[2], id="mixtral-8x7b+" + _ids(
+        KNOBS[2]))]
 
 
 def _reqs(cfg, lens, out, seed=0, cls=Request):
@@ -44,13 +45,14 @@ def _reqs(cfg, lens, out, seed=0, cls=Request):
             for i, n in enumerate(lens)]
 
 
-@pytest.mark.parametrize("knobs", KNOBS, ids=_ids)
-def test_token_streams_match_reference_engine(cfg, knobs):
+@pytest.mark.parametrize("arch,knobs", CASES)
+def test_token_streams_match_reference_engine(arch, knobs):
     """Slice-level parity: the same 4 prompts (5 to 27 tokens: one to four
     chunks of 8) x 12 greedy tokens through the reference RealEngine and
     the port's, on the same weights and the same knobs, give identical
     token streams (float32 isolates the algorithm)."""
-    jcfg = dataclasses.replace(jax_config("llama3-8b").reduced(), **F32)
+    cfg = dataclasses.replace(get_config(arch).reduced(), **F32)
+    jcfg = dataclasses.replace(jax_config(arch).reduced(), **F32)
     ecfg = dict(max_slots=4, max_seq=64, replicate=False, **knobs)
     jeng = JRealEngine(jcfg, JEngineConfig(**ecfg), n_instances=1, seed=0)
     params = from_jax_numpy(jax.tree_util.tree_map(np.asarray, jeng.params),
@@ -94,12 +96,16 @@ def test_knobs_serve_on_cpu(knobs):
         assert inst.pool.n_used == 1 and inst.prefill_depth() == 0
 
 
-@pytest.mark.parametrize("chunk", [0, 8])
-def test_int8_failover_byte_identical_from_promoted_blocks(cfg, chunk):
+@pytest.mark.parametrize("arch,chunk", [
+    pytest.param("llama3-8b", 0, id="0"), pytest.param("llama3-8b", 8, id="8"),
+    pytest.param("mixtral-8x7b", 8, id="mixtral-8x7b-8")])
+def test_int8_failover_byte_identical_from_promoted_blocks(arch, chunk):
     """Kill the busy instance mid-decode on an int8 pool: every victim
     resumes on the ring target from PROMOTED replica blocks whose int8
     payload AND scales equal the dead primary's, and every token stream
-    equals the failure-free run's."""
+    equals the failure-free run's (dense, and MoE with chunks)."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), **F32)
+
     def run(fail: bool):
         eng = RealEngine(cfg, EngineConfig(max_slots=8, max_seq=96,
                                            kv_quant=True,

@@ -125,14 +125,15 @@ def test_fleet_chaos_dense_8(placement):
     assert len(kills0) == 2 and kills0[0]["t_rejoin"] <= kills0[1]["t_fail"]
 
 
-def test_fleet_chaos_matches_reference_engine():
-    """Converted float32 weights: the port's 8-instance storm gives the
-    reference engine's streams, failure_events (every key),
-    control.describe() and, step for step, the same read views (queued
-    requests, scheduled rejoins, staged jobs, staged and dropped
+@pytest.mark.parametrize("arch", ["llama3-8b", "mixtral-8x7b"])
+def test_fleet_chaos_matches_reference_engine(arch):
+    """Converted float32 weights, dense and MoE: the port's 8-instance
+    storm gives the reference engine's streams, failure_events (every
+    key), control.describe() and, step for step, the same read views
+    (queued requests, scheduled rejoins, staged jobs, staged and dropped
     tallies)."""
-    jcfg = dataclasses.replace(jax_config("llama3-8b").reduced(), **F32)
-    tcfg = dataclasses.replace(get_config("llama3-8b").reduced(), **F32)
+    jcfg = dataclasses.replace(jax_config(arch).reduced(), **F32)
+    tcfg = dataclasses.replace(get_config(arch).reduced(), **F32)
     kw = dict(max_slots=4, max_seq=64, placement="rendezvous", **DRILL)
     jeng = JRealEngine(jcfg, JEngineConfig(**kw), n_instances=8, seed=0)
     params = from_jax_numpy(jax.tree_util.tree_map(np.asarray, jeng.params),

@@ -22,6 +22,8 @@ from repro_torch.kernels import paged_attention_int8 as PA8  # noqa: E402
 from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.kernels.ref import (paged_attention_int8_ref,  # noqa: E402
                                      paged_attention_ref, ssd_scan_ref)
+from repro_torch.models import api  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import paged_decode as PD  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
@@ -275,6 +277,87 @@ def test_int8_decode_step_runs_through_kernel(card, smoke):
     assert ((deq(kg.cpu(), ksg.cpu()) - deq(kp, ks)).abs()
             <= step + 1e-6).all()
     assert (kg.cpu() != kp).any(dim=(1, 4)).sum() <= cfg.n_layers * 4
+
+
+@pytest.mark.gpu
+def test_moe_decode_step_runs_through_kernel(card, smoke):
+    """One paged decode step of the reduced float32 mixtral on the card,
+    past its 64-token window (base and starts > 0 on the last slot): the
+    kernel once per layer, and the CPU step's logits and pages."""
+    cfg = dataclasses.replace(get_config("mixtral-8x7b").reduced(),
+                              dtype="float32", kv_dtype="float32")
+    params = api.init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+
+    def to_card(tree):
+        return {k: to_card(v) if isinstance(v, dict) else v.to(card)
+                for k, v in tree.items()}
+
+    width = PD.table_pages(cfg, 4 * cfg.sliding_window)      # the ring, 9
+    kp, vp = PD.init_pages(cfg, 4 * width + 1, cfg.page_size, device="cpu")
+    kp.normal_(generator=torch.Generator().manual_seed(1))
+    vp.normal_(generator=torch.Generator().manual_seed(2))
+    tables = torch.arange(1, 4 * width + 1, dtype=torch.int32).reshape(
+        4, width)
+    pos = torch.tensor([3, 9, 17, 80], dtype=torch.int32)
+    base = torch.tensor([0, 0, 0, 16], dtype=torch.int32)
+    tok = torch.tensor([5, 7, 11, 13], dtype=torch.int32)
+    kg, vg = kp.to(card), vp.to(card)          # copies, before the CPU step
+    cpu = PD.decode_step_paged(cfg, params, tok, kp, vp, tables, pos,
+                               base=base)
+    before = PA.launches
+    gpu = PD.decode_step_paged(cfg, to_card(params), tok.to(card), kg, vg,
+                               tables.to(card), pos.to(card),
+                               base=base.to(card))
+    torch.cuda.synchronize()
+    assert PA.launches == before + cfg.n_layers * smoke.launches_per_call(
+        width)
+    torch.testing.assert_close(gpu[1].cpu(), cpu[1], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(kg.cpu(), kp, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["llama3-8b", "mixtral-8x7b"])
+def test_chunked_prefill_bit_equal_to_monolithic_on_card(card, name):
+    """Full width, 2 layers, bf16, a 200-token prompt in bucket 256: chunks
+    of 64 give the monolithic prefill's K/V rows and logits bit for bit
+    (products in 64-row blocks, attention in 64-row query chunks: the
+    same cuBLAS shapes either way)."""
+    cfg = dataclasses.replace(get_config(name), n_layers=2)
+    params = api.init_params(cfg, torch.Generator(card).manual_seed(0),
+                             device=card)
+    n, bucket, chunk = 200, 256, 64
+    toks = torch.zeros((1, bucket), dtype=torch.int32, device=card)
+    toks[0, :n] = torch.randint(1, cfg.vocab_size, (n,),
+                                generator=torch.Generator(card).manual_seed(1),
+                                device=card)
+    lm, km, vm = PD.prefill_bucketed(cfg, params, toks, n)
+    kb, vb = PD.init_chunk_buffers(cfg, bucket, device=card)
+    for c0 in range(0, n, chunk):
+        logits, kb, vb = PD.prefill_chunk(cfg, params,
+                                          toks[:, c0:c0 + chunk], c0,
+                                          min(chunk, n - c0), kb, vb)
+    assert torch.equal(logits, lm)
+    assert torch.equal(km[:, :n], kb[:, :n].to(km.dtype))
+    assert torch.equal(vm[:, :n], vb[:, :n].to(vm.dtype))
+
+
+@pytest.mark.gpu
+def test_moe_decode_mlp_slot_is_batch_invariant_on_card(card):
+    """Full-width mixtral layer, bf16, 8 slots: a slot's routed MLP output
+    is the same bits whatever the other slots hold and wherever the token
+    sits."""
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=1)
+    params = api.init_params(cfg, torch.Generator(card).manual_seed(0),
+                             device=card)
+    p = transformer.layer_params(params["layers"], 0)
+    gen = torch.Generator(card).manual_seed(3)
+    x, other = (torch.randn((8, 1, cfg.d_model), generator=gen,
+                            device=card).bfloat16() for _ in range(2))
+    y = moe.decode_mlp(cfg, p, x)
+    moved = other.clone()
+    moved[5] = x[0]
+    assert torch.equal(moe.decode_mlp(cfg, p, moved)[5], y[0])
 
 
 def _ssd_case(b, s, h, p, n, bc_dtype, seed=0, row_pad=5):

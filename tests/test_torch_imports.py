@@ -44,6 +44,7 @@ def test_port_and_chip_smoke_import_without_jax_or_reference():
             "repro_torch.kernels.ops",
             "repro_torch.kernels.ssd_scan",
             "repro_torch.models.ssm",
+            "repro_torch.models.moe",
             "repro_torch.models.api",
             "repro_torch.distributed.sharding"} <= names
 

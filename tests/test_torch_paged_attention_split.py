@@ -158,6 +158,10 @@ CASES = {
     "starts_mask_whole_pages": (3, 6, 3, 32, [9, 40, 130], [4, 12, 3]),
     "mha": (2, 4, 4, 16, [30, 144], [0, 5]),
     "mqa": (2, 8, 1, 16, [70, 129], None),
+    # partly filled head tiles: rep 6 runs 6 of the 8-head tile's heads
+    # (dbrx-132b's 48/8), rep 3 runs 3 of the 4-head tile's
+    "rep6_partial_tile": (3, 12, 2, 16, [33, 144, 9], [0, 20, 2]),
+    "rep3_partial_tile": (2, 6, 2, 16, [100, 17], None),
 }
 
 

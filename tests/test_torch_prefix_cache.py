@@ -273,11 +273,11 @@ def _capture_pages(inst, req, kv_quant):
 
 
 def _warm_run(kv_quant, prefix_cache, prime_ids, follower_ids, out=6,
-              capture_rid=1, prefill_chunk=8):
+              capture_rid=1, prefill_chunk=8, arch="llama3-8b"):
     """Prime the cache with one request run to completion, then submit the
     followers together; snapshot the captured follower's prompt pages the
     moment it enters DECODE."""
-    cfg = get_config("llama3-8b").reduced()
+    cfg = get_config(arch).reduced()
     eng = RealEngine(cfg, EngineConfig(max_slots=4, max_seq=64,
                                        replicate=False,
                                        prefill_chunk=prefill_chunk,
@@ -306,19 +306,24 @@ def _warm_run(kv_quant, prefix_cache, prime_ids, follower_ids, out=6,
     return eng, [r.output_tokens for r in followers], pages
 
 
+@pytest.mark.parametrize("arch", ["llama3-8b", "mixtral-8x7b"])
 @pytest.mark.parametrize("prefill_chunk", [8, 0])
 @pytest.mark.parametrize("kv_quant", [False, True])
-def test_shared_prefix_equivalent_to_cold_start(kv_quant, prefill_chunk):
-    """bf16 and int8 pools, chunked and monolithic prefill: two followers
-    repeating a primed 20-token prompt produce the exact cold-start token
-    streams AND byte-identical prompt pages, while genuinely hitting the
-    cache; the chunked bf16 pool also skips prompt compute."""
+def test_shared_prefix_equivalent_to_cold_start(kv_quant, prefill_chunk,
+                                                arch):
+    """bf16 and int8 pools, chunked and monolithic prefill, dense and MoE:
+    two followers repeating a primed 20-token prompt produce the exact
+    cold-start token streams AND byte-identical prompt pages, while
+    genuinely hitting the cache; the chunked bf16 pool also skips prompt
+    compute."""
     rng = np.random.default_rng(0)
     ids = rng.integers(1, 1024, 20).tolist()
     warm_eng, warm_toks, warm_pages = _warm_run(
-        kv_quant, True, ids, [ids, ids], prefill_chunk=prefill_chunk)
+        kv_quant, True, ids, [ids, ids], prefill_chunk=prefill_chunk,
+        arch=arch)
     cold_eng, cold_toks, cold_pages = _warm_run(
-        kv_quant, False, ids, [ids, ids], prefill_chunk=prefill_chunk)
+        kv_quant, False, ids, [ids, ids], prefill_chunk=prefill_chunk,
+        arch=arch)
     assert warm_toks == cold_toks
     assert warm_pages is not None and set(warm_pages) == set(cold_pages)
     for logical in cold_pages:

@@ -74,6 +74,18 @@ def shard_url():
 
 
 @pytest.fixture(scope="module")
+def moe_url():
+    """The reduced mixtral-8x7b (4 experts top-2, window 64)."""
+    yield from _server("--arch", "mixtral-8x7b")
+
+
+@pytest.fixture(scope="module")
+def dbrx_one_layer_url():
+    """The reduced dbrx-132b cut to its first layer (``--layers``)."""
+    yield from _server("--arch", "dbrx-132b", "--layers", "1")
+
+
+@pytest.fixture(scope="module")
 def disagg_url():
     """Prefill/decode roles; the chunk size defaults to 8."""
     yield from _server("--disaggregate")
@@ -350,6 +362,61 @@ def test_disaggregated_server_roles_and_handoffs(disagg_url, base_url):
     assert d["handoff_bytes_total"] == d["handoff_blocks_total"] * (
         2 * 2 * 2 * 8 * 64 * 2)
     assert h["topology"]["roles"] == {"0": "prefill", "1": "decode"}
+
+
+def test_moe_completion_roundtrip_and_kill(moe_url):
+    """``--arch mixtral-8x7b``: greedy completions repeat, /health shows
+    the MoE block bytes, and an instance kill under live traffic resumes
+    every stream byte-identically."""
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, VOCAB, n).tolist() for n in (8, 21, 40, 13)]
+    url = moe_url + "/v1/completions"
+    want = [_post(url, {"prompt_tokens": p, "max_tokens": 40})
+            for p in prompts]
+    assert {o["model"] for o in want} == {"mixtral-8x7b-reduced"}
+    # reduced mixtral bf16 block: 2 layers x 2 KV heads x page 8 x D 64
+    repl = _health(moe_url)["replication"]
+    assert repl["blocks_total"] > 0
+    assert repl["bytes_total"] == repl["blocks_total"] * 2 * 2 * 2 * 8 * 64 * 2
+    results = [None] * len(prompts)
+
+    def one(i):
+        results[i] = _post(url, {"prompt_tokens": prompts[i],
+                                 "max_tokens": 40})
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    deadline = time.time() + 60
+    while True:
+        inst = _health(moe_url)["instances"]
+        if sum(i["active"] for i in inst) == len(prompts) and \
+                inst[0]["active"] > inst[0]["prefilling"]:
+            break
+        assert time.time() < deadline, "instance 0 never started decoding"
+        time.sleep(0.005)
+    fault = _post(moe_url + "/v1/admin/fault",
+                  {"granularity": "instance", "instance_id": 0,
+                   "if_busy": True})
+    for t in threads:
+        t.join(timeout=120)
+    assert fault["applied"] and fault["seamlessly_resumed"]
+    assert [r["choices"][0]["token_ids"] for r in results] == \
+        [o["choices"][0]["token_ids"] for o in want]
+    assert any(r["kevlarflow"]["migrations"] == 1 for r in results)
+
+
+def test_layers_flag_cuts_depth(dbrx_one_layer_url):
+    """``--arch dbrx-132b --layers 1``: a completion round-trips, and a
+    replicated block holds one layer's K/V rows."""
+    toks = np.random.default_rng(6).integers(1, VOCAB, 9).tolist()
+    out = _post(dbrx_one_layer_url + "/v1/completions",
+                {"prompt_tokens": toks, "max_tokens": 5})
+    assert out["model"] == "dbrx-132b-reduced"
+    assert len(out["choices"][0]["token_ids"]) == 5
+    repl = _health(dbrx_one_layer_url)["replication"]
+    assert repl["blocks_total"] > 0
+    assert repl["bytes_total"] == repl["blocks_total"] * 2 * 2 * 8 * 64 * 2
 
 
 def test_fail_instance_if_busy_kills_only_a_busy_instance():

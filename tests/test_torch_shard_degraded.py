@@ -143,15 +143,16 @@ def test_shard_degraded_dense_8(cfg):
     assert _streams(eng) == _failure_free(cfg, 8, _workload(cfg, 16))
 
 
-def test_shard_degraded_drill_matches_reference_engine():
-    """Converted float32 weights: the port's 8-instance drill gives the
-    reference engine's streams, failure_events (every key),
-    control.describe() and replication tallies (those landing on the
+@pytest.mark.parametrize("arch", ["llama3-8b", "mixtral-8x7b"])
+def test_shard_degraded_drill_matches_reference_engine(arch):
+    """Converted float32 weights, dense and MoE: the port's 8-instance
+    drill gives the reference engine's streams, failure_events (every
+    key), control.describe() and replication tallies (those landing on the
     degraded instance included) and, step for step, the same read views
     (queued requests, scheduled rejoins, staged jobs, staged and dropped
     tallies)."""
-    jcfg = dataclasses.replace(jax_config("llama3-8b").reduced(), **F32)
-    tcfg = dataclasses.replace(get_config("llama3-8b").reduced(), **F32)
+    jcfg = dataclasses.replace(jax_config(arch).reduced(), **F32)
+    tcfg = dataclasses.replace(get_config(arch).reduced(), **F32)
     jeng = JRealEngine(jcfg, JEngineConfig(**ECFG_KWARGS, **DRILL),
                        n_instances=8, seed=0)
     params = from_jax_numpy(jax.tree_util.tree_map(np.asarray, jeng.params),

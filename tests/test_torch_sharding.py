@@ -21,10 +21,11 @@ from repro.serving.engine import EngineConfig as JEngineConfig  # noqa: E402
 from repro.serving.engine import RealEngine as JRealEngine  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.distributed import sharding as SH  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import api, transformer  # noqa: E402
 from repro_torch.serving.engine import EngineConfig, RealEngine  # noqa: E402
 
 DENSE = ["llama3-8b", "yi-9b", "qwen1.5-0.5b", "qwen1.5-32b", "deepseek-67b"]
+MOE = ["mixtral-8x7b", "dbrx-132b"]
 LOST = [{1}, {1, 2}, {0, 2, 3}]
 
 
@@ -32,17 +33,20 @@ def _jmesh(n_data, n_model):
     return JSH.abstract_mesh((n_data, n_model), ("data", "model"))
 
 
-@pytest.fixture(scope="module", params=DENSE)
-def trees(request):
+def _trees(name):
     """(name, reference param and cache shapes, port param and cache
     shapes) at full size, for B = 8 sequences of 256 tokens."""
-    name = request.param
     jcfg, tcfg = jax_config(name), get_config(name)
     jp = jax.eval_shape(lambda: japi.init_params(jcfg, jax.random.PRNGKey(0)))
     jc = jax.eval_shape(lambda: japi.init_cache(jcfg, 8, 256))
-    tp = transformer.init_params(tcfg, None, device="meta")
+    tp = api.init_params(tcfg, None, device="meta")
     tc = SH.decode_cache_shape(tcfg, 8, 256)
     return name, jp, jc, tp, tc
+
+
+@pytest.fixture(scope="module", params=DENSE + MOE)
+def trees(request):
+    return _trees(request.param)
 
 
 def test_param_and_cache_trees_have_the_reference_leaves(trees):
@@ -65,12 +69,36 @@ def test_param_and_cache_trees_have_the_reference_leaves(trees):
 @pytest.mark.parametrize("n_shards", [4, 8])
 def test_degradation_summary_matches_reference(trees, n_shards):
     name, jp, jc, tp, tc = trees
+    arch = get_config(name).arch_type
     for lost in LOST:
         want = JSH.degradation_summary(jp, _jmesh(1, n_shards), lost,
-                                       cache_shape=jc, arch_type="dense")
+                                       cache_shape=jc, arch_type=arch)
         got = SH.degradation_summary(tp, SH.mesh(n_shards), lost,
-                                     cache_shape=tc, arch_type="dense")
+                                     cache_shape=tc, arch_type=arch)
         assert got == want, (name, n_shards, lost)
+
+
+@pytest.mark.parametrize("name", MOE)
+def test_expert_parallel_summary_matches_reference(name):
+    """The expert-parallel profile at a 16-way model axis: dbrx's 16
+    experts split over it, mixtral's 8 do not (its expert stacks fall back
+    to the last-dim rule), and the summaries equal the reference's at 16
+    shards and after losing some."""
+    _, jp, jc, tp, tc = _trees(name)
+    cfg = get_config(name)
+    shape = (cfg.n_layers, cfg.n_experts, cfg.d_model, cfg.d_ff)
+    spec = SH.param_spec(("layers", "experts", "w_gate"), shape,
+                         SH.mesh(16), True, "expert_parallel")
+    assert (spec[1] == "model") == (cfg.n_experts % 16 == 0)
+    for lost in [{15}] + LOST:
+        for profile in ("expert_parallel", "serve_model_only"):
+            want = JSH.degradation_summary(jp, _jmesh(1, 16), lost,
+                                           profile=profile, cache_shape=jc,
+                                           arch_type="moe")
+            got = SH.degradation_summary(tp, SH.mesh(16), lost,
+                                         profile=profile, cache_shape=tc,
+                                         arch_type="moe")
+            assert got == want, (name, profile, lost)
 
 
 def test_losing_every_shard_raises():
@@ -131,7 +159,7 @@ def test_cache_specs_match_reference(arch):
         assert got == [tuple(w) for w in want], (arch, nd, nm)
 
 
-@pytest.mark.parametrize("name", ["llama3-8b", "qwen1.5-32b"])
+@pytest.mark.parametrize("name", ["llama3-8b", "qwen1.5-32b"] + MOE)
 def test_engine_degradation_layout_matches_reference(name):
     """The layout each engine attaches to a degraded instance (its own
     params and decode-cache shapes) on the reduced config."""

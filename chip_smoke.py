@@ -33,10 +33,15 @@ Phases (each raises, and the script exits non-zero, if its check fails):
                 deepseek-67b (H 64, K 8, D 128), rep 8, the 8-head tile;
                 qwen1.5-0.5b (H 16, K 16, D 64) and qwen1.5-32b (H 40, K 40,
                 D 128), rep 1; dbrx-132b (H 48, K 8, D 128), rep 6: 6 of
-                the 8-head tile's heads live; B 8, page 16, lengths up to 256 and 4096,
-                q bf16 and f32, with and without window starts, against the
-                plain versions; then each geometry, and llama3-8b's (rep 4,
-                for comparison), timed in a CUDA graph with bound and share.
+                the 8-head tile's heads live; recurrentgemma-9b's local
+                attention (H 16, K 1, D 256), rep 16: two 8-head tiles of 32
+                lanes a row; B 8, page 16, lengths up to 256 and 4096 (2048,
+                the window, for recurrentgemma-9b), q bf16 and f32, with and
+                without window starts, against the plain versions; then each
+                geometry, and llama3-8b's (rep 4, for comparison), timed in
+                a CUDA graph with bound and share; ptxas's registers and
+                spills of the D 256 instantiations (nvcc -Xptxas -v, run
+                beside the build).
   6. kernel (ssd_scan) — the SSD scan kernels (the C·Bᵀ pass, then the
                 scan) against the plain sequential version and the plain
                 chunked form, at the full-width mamba2-130m shape (b 8,
@@ -137,7 +142,30 @@ Phases (each raises, and the script exits non-zero, if its check fails):
                 streams byte-identically.
   22. moe config dbrx-132b — after freeing mixtral: 11 of 40 layers, the
                 same serving, kill, decode and MoE MLP profiles as phase 20.
-  23. mamba2 generation — full-width mamba2-130m (bf16, random weights from
+  23. hybrid config recurrentgemma-9b — after freeing dbrx: full width and
+                all 38 layers (26 RG-LRU, 12 local attention; fresh random
+                weights): the Llama prompt set served twice over HTTP (equal
+                streams), an instance kill (streams equal, a migration: the
+                victim's state blob promoted), /health's replicated bytes
+                equal to blocks x 196,608 B plus blobs x 1,703,936 B with
+                at most one blob per request step, the decode profile, the
+                RG-LRU layers' share of the step's device time, the step's
+                weight-read bound (from the params, the f32 gate copies
+                included) and the sequential RG-LRU scan's time and launches
+                in prefill (256 and 2048 positions).
+  24. hybrid invariants — engines stepped by hand, every stream bit for
+                bit: chunked prefill (chunks of 64) equal to monolithic, the
+                two prefills' state blobs equal (largest difference printed);
+                the int8 pool with chunks of 64 through a kill equal to the
+                same path without it (99,072 B blocks, 425,986 B blobs); the
+                shared-prefix set with the prefix cache equal to cold (hits
+                share pages, every prompt token recomputed) and
+                disaggregated equal to colocated (one blob per handoff).
+  25. hybrid window — two 2030-token prompts, 48 greedy tokens each, past
+                the 2048-token window: pages recycle (retire messages, at
+                most 129 resident), the kernels' window starts run at D 256,
+                and a kill after the slide resumes both streams.
+  26. mamba2 generation — full-width mamba2-130m (bf16, random weights from
                 torch.Generator seed 0) through api.prefill and
                 api.decode_step: 8 prompts of 512 tokens (2 chunks), then 8
                 of 200 (one ragged chunk), 64 greedy tokens each, twice:
@@ -146,7 +174,7 @@ Phases (each raises, and the script exits non-zero, if its check fails):
                 kernel prefill against the plain chunked form, and forward
                 at t against prefill(:t) plus one decode step; prefill and
                 decode-step profiles.
-  24. summary — the head-geometry timings, one JSON line of kernels, the
+  27. summary — the head-geometry timings, one JSON line of kernels, the
                 card line, and the final {"ok": true, "device": ...} line.
 
 Each path's kernel launch counts are set to 0 just before the path and read
@@ -185,7 +213,8 @@ from repro_torch.kernels import ref as REF  # noqa: E402
 from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.kernels.ref import (paged_attention_int8_ref,  # noqa: E402
                                      paged_attention_ref, ssd_scan_ref)
-from repro_torch.models import api, moe, ssm, transformer  # noqa: E402
+from repro_torch.models import (api, hybrid, moe, ssm,  # noqa: E402
+                                transformer)
 from repro_torch.models import paged_decode as PD  # noqa: E402
 from repro_torch.models.transformer import layer_params  # noqa: E402
 from repro_torch.serving.engine import (EngineConfig,  # noqa: E402
@@ -615,16 +644,52 @@ def kernel_int8_phase() -> dict:
 
 # the dense configs' decode head geometries; llama3-8b's (rep 4, the 4-head
 # tile) is timed beside the rep-8 ones (yi-9b, deepseek-67b: the 8-head
-# tile, which ptxas says spills), the rep-1 ones are qwen's MHA
+# tile, which ptxas says spills), the rep-1 ones are qwen's MHA;
+# recurrentgemma-9b's local attention is MQA at D 256 (rep 16: two 8-head
+# tiles of one KV head, 32 lanes a row)
 GEOMETRY_CONFIGS = ("llama3-8b", "yi-9b", "deepseek-67b", "qwen1.5-0.5b",
-                    "qwen1.5-32b", "dbrx-132b")
+                    "qwen1.5-32b", "dbrx-132b", "recurrentgemma-9b")
 
 
 def geometry_shapes(cfg) -> dict:
     """Length -> shape at ``cfg``'s head geometry: B 8, page 16, 16 pages
-    (every length 256 when timed) and 256 pages (4096)."""
+    (every length 256 when timed) and the long length, 4096 (256 pages) or
+    the config's window where that is shorter (recurrentgemma-9b: 2048,
+    128 pages)."""
     h, k, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return {256: (8, h, k, d, 16, 16, 257), 4096: (8, h, k, d, 16, 256, 2049)}
+    long = min(4096, cfg.sliding_window or 4096)
+    pps = long // 16
+    return {256: (8, h, k, d, 16, 16, 257),
+            long: (8, h, k, d, 16, pps, 8 * pps + 1)}
+
+
+def start_ptxas_report():
+    """ptxas's registers, stack and spills of both attention kernels'
+    instantiations (``tools/tune_kernels.py resources``: nvcc with
+    -Xptxas -v), started beside the build."""
+    return subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "tools", "tune_kernels.py"),
+         "resources", "paged_attention", "paged_attention_int8"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=ROOT)
+
+
+def print_d256_resources(proc, card: str):
+    """Wait for ``start_ptxas_report``'s run and print its lines for the
+    D 256 instantiations (32 lanes a row: template argument G = 32) with
+    the 8-head tile recurrentgemma-9b's rep 16 runs."""
+    out, _ = proc.communicate(timeout=900)
+    check(proc.returncode == 0, f"ptxas report failed:\n{out[-3000:]}")
+    keep, shown = False, 0
+    for line in out.splitlines():
+        if line.startswith("=="):
+            print(f"ptxas -v {line[3:]} [{card}]")
+        elif line.startswith("kernel"):
+            keep = ", 8, 32>" in line
+            shown += keep
+        if keep:
+            print(f"  {line.strip()[:160]}")
+    check(shown >= 2, "no D 256 instantiation in the ptxas report")
 
 
 def rotating_sets(make, shape, itemsize) -> list:
@@ -636,7 +701,8 @@ def rotating_sets(make, shape, itemsize) -> list:
 
 
 def geometry_phase(card: str) -> list:
-    """Both attention kernels at the dense configs' head geometries: held
+    """Both attention kernels at the dense, MoE and hybrid configs' head
+    geometries (``GEOMETRY_CONFIGS``): held
     against their plain versions (q bf16 and f32, with and without window
     starts, at both lengths; llama3-8b's geometry is the kernel phases'),
     then timed in a CUDA graph with bound and share. Returns the timing
@@ -699,17 +765,13 @@ def geometry_phase(card: str) -> list:
             del bf16_sets, int8_sets
         torch.cuda.empty_cache()
     print(f"head-geometry checks: largest max_abs_err {max_err:.3e}")
-    share = {(r["config"], r["kernel"], r["length"]): r["share"]
-             for r in rows}
     for kernel in ("paged_attention", "paged_attention_int8"):
-        for length in (256, 4096):
+        for length in sorted({r["length"] for r in rows}):
             print(f"{kernel} share of the bound at length {length} [{card}]: "
-                  f"8-head tile yi-9b {share['yi-9b', kernel, length]:.3f}, "
-                  f"deepseek-67b {share['deepseek-67b', kernel, length]:.3f}"
-                  f", 6 of 8 heads live dbrx-132b "
-                  f"{share['dbrx-132b', kernel, length]:.3f}"
-                  f"; 4-head tile llama3-8b "
-                  f"{share['llama3-8b', kernel, length]:.3f}")
+                  + ", ".join(f"{r['config']} (rep {r['rep']}, D {r['D']}) "
+                              f"{r['share']:.3f}" for r in rows
+                              if r["kernel"] == kernel
+                              and r["length"] == length))
     return rows
 
 
@@ -988,10 +1050,17 @@ def decode_profile(engine, card: str, kernel):
     pos = torch.full((b,), 200, dtype=torch.int32, device="cuda")
     base = torch.zeros_like(pos)
     tok = torch.arange(1, b + 1, dtype=torch.int32, device="cuda")
+    # the hybrid step reads and writes a state blob per slot: blobs 1..b
+    blob_slots = torch.arange(1, b + 1, dtype=torch.int32, device="cuda")
 
     def step():
-        inst._decode(engine.params, tok, pool.k, pool.v, pool.k_scale,
-                     pool.v_scale, bt, pos, base, inst._generator)
+        if inst.family == "hybrid":
+            inst._decode(engine.params, tok, pool.k, pool.v, pool.k_scale,
+                         pool.v_scale, pool.blobs, pool.blob_scales, bt,
+                         blob_slots, pos, base, inst._generator)
+        else:
+            inst._decode(engine.params, tok, pool.k, pool.v, pool.k_scale,
+                         pool.v_scale, bt, pos, base, inst._generator)
 
     for _ in range(2):
         step()
@@ -1006,7 +1075,7 @@ def decode_profile(engine, card: str, kernel):
         step()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / n
-    layers = engine.cfg.n_layers             # one call per layer per step
+    layers = attn_layers(engine.cfg)      # one call per layer per step
     check(kernel.launches == n * layers * launches_per_call(width),
           f"decode profile: {kernel.launches} {kname(kernel)} launches")
     per_step = kernel.launches / n
@@ -1063,11 +1132,27 @@ def sync_calls(fn) -> list:
             for w in caught if "synchronizing" in str(w.message)]
 
 
+def attn_layers(cfg) -> int:
+    """Layers that attend over the paged pool (the hybrid's local-attention
+    layers; every layer of the other families): one attention call each
+    per decode step."""
+    return len(PD.kv_layer_indices(cfg))
+
+
 def block_bytes(cfg, quantized: bool) -> int:
-    """One replication message: K and V rows of every layer and KV head of
-    one page — int8 plus a bf16 scale per row, or bf16."""
-    rows = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.page_size
+    """One replication message: K and V rows of every attention layer and
+    KV head of one page — int8 plus a bf16 scale per row, or bf16."""
+    rows = 2 * attn_layers(cfg) * cfg.n_kv_heads * cfg.page_size
     return rows * (cfg.head_dim + 2) if quantized else rows * cfg.head_dim * 2
+
+
+def blob_bytes(cfg, quantized: bool) -> int:
+    """One state-blob message (the hybrid's RG-LRU state; 0 elsewhere): f32
+    words, or int8 words plus one bf16 scale."""
+    if cfg.arch_type != "hybrid":
+        return 0
+    words = hybrid.state_blob_words(cfg)
+    return words + 2 if quantized else 4 * words
 
 
 def counted(label, what, fn, kernel, idle, n_layers):
@@ -1122,10 +1207,11 @@ def run_path(card, cfg, ecfg, kernel, idle, label, prompts, params=None,
     when given), warm it up, then serving (twice with ``repeat``: the
     second run's streams must equal the first's), failover and decode
     profile. ``kernel`` is the wrapper module the path must launch (a
-    positive multiple of ``cfg.n_layers`` launches), ``idle`` the one it
-    must not launch. Returns (launches on the serving and failover phases,
+    positive multiple of ``attn_layers(cfg)`` launches), ``idle`` the one
+    it must not launch. Returns (launches on the serving and failover phases,
     the engine's params, the decode profile, the first run's streams)."""
     t0 = time.perf_counter()
+    n_attn = attn_layers(cfg)
     svc, httpd = serve(cfg, ecfg, n_instances=2, port=0, device="cuda",
                        params=params)
     print(f"[{label}] engine up in {time.perf_counter() - t0:.1f} s "
@@ -1148,7 +1234,7 @@ def run_path(card, cfg, ecfg, kernel, idle, label, prompts, params=None,
         t0 = time.perf_counter()
         resps, n = counted(label, "serving",
                            lambda: join(*client.completions(prompts, 32)),
-                           kernel, idle, cfg.n_layers)
+                           kernel, idle, n_attn)
         launches += n
         wall = time.perf_counter() - t0
         steps = [s[1] for s in svc.engine.step_samples[n_samples:]]
@@ -1159,12 +1245,24 @@ def run_path(card, cfg, ecfg, kernel, idle, label, prompts, params=None,
         check(streams[1] == streams[-1], "greedy determinism: same prompt, "
               "different tokens")
         repl = client.health()["replication"]
-        per_block = repl["bytes_total"] / max(repl["blocks_total"], 1)
+        # a hybrid's state blobs ride beside the blocks: take their bytes
+        # out before dividing by the blocks
+        blob = blob_bytes(cfg, ecfg.kv_quant)
+        per_block = (repl["bytes_total"] - repl["blobs_total"] * blob) \
+            / max(repl["blocks_total"], 1)
         print(f"[{label}] replication: {repl['blocks_total']} blocks, "
-              f"{repl['bytes_total']} B, {per_block:.0f} B per block")
+              f"{repl['blobs_total']} blobs, {repl['bytes_total']} B, "
+              f"{per_block:.0f} B per block"
+              + (f", {blob} B per blob, "
+                 f"{repl['blobs_per_request_step']:.3f} blobs per request "
+                 "step" if blob else ""))
         want = block_bytes(cfg, ecfg.kv_quant)
         check(repl["blocks_total"] > 0 and per_block == want,
               f"replicated bytes per block {per_block} != {want}")
+        check(bool(blob) == (repl["blobs_total"] > 0)
+              and repl["blobs_per_request_step"] <= 1,
+              f"{repl['blobs_total']} blobs replicated "
+              f"({repl['blobs_per_request_step']:.3f} per request step)")
         m = serving_metrics(resps, wall)
         m["engine_steps"] = len(steps)
         m["engine_step_s_median"] = statistics.median(steps)
@@ -1174,7 +1272,7 @@ def run_path(card, cfg, ecfg, kernel, idle, label, prompts, params=None,
             again, n = counted(
                 label, "serving again",
                 lambda: join(*client.completions(prompts, 32)), kernel,
-                idle, cfg.n_layers)
+                idle, n_attn)
             launches += n
             check(tokens_of(again) == streams,
                   "greedy streams differ between two failure-free runs")
@@ -1185,7 +1283,7 @@ def run_path(card, cfg, ecfg, kernel, idle, label, prompts, params=None,
         (resps2, victim, prefilling), n = counted(
             label, "failover",
             lambda: http_kill_drill(client, prompts, 32, label),
-            kernel, idle, cfg.n_layers)
+            kernel, idle, n_attn)
         launches += n
         migrations = [r["kevlarflow"]["migrations"] for r in resps2]
         retries = [r["kevlarflow"]["retries"] for r in resps2]
@@ -2162,28 +2260,29 @@ def moe_invariants_phase(card, cfg, params, prompts, streams) -> dict:
     return out
 
 
-def moe_window_phase(card, cfg, params) -> int:
-    """Phase "moe window NAME": two prompts of 4000 tokens, 128 greedy
-    tokens each, so positions pass the 4096-token window and pages
-    recycle; then again with the instance decoding most killed just after
-    the first page is retired. Every stream equals the failure-free run,
-    retirements ran and no request held more than ceil(4096/16) + 1 = 257
-    pages. Returns the bf16 kernel's launches."""
-    label = f"moe window {cfg.name}"
+def window_phase(card, cfg, params, label, prompt_len, n_new) -> int:
+    """Phase "moe window NAME" / "hybrid window NAME": two prompts of
+    ``prompt_len`` tokens, ``n_new`` greedy tokens each, so positions pass
+    the config's window and pages recycle (the kernels' window starts run);
+    then again with the instance decoding most killed just after the first
+    page is retired. Every stream equals the failure-free run, retirements
+    ran and no request held more than ceil(window/16) + 1 pages. Returns
+    the bf16 kernel's launches."""
+    n_attn = attn_layers(cfg)
     rng = np.random.default_rng(4)
-    prompts = [rng.integers(1, cfg.vocab_size, WINDOW_PROMPT).tolist()
+    prompts = [rng.integers(1, cfg.vocab_size, prompt_len).tolist()
                for _ in range(2)]
-    ecfg = EngineConfig(max_slots=2, max_seq=WINDOW_PROMPT + WINDOW_NEW)
+    ecfg = EngineConfig(max_slots=2, max_seq=prompt_len + n_new)
     ring = -(-cfg.sliding_window // cfg.page_size) + 1
     t0 = time.perf_counter()
     (want, _, peak, eng), n = counted(
         label, "failure-free", lambda: engine_run(cfg, params, ecfg,
-                                                  [prompts], WINDOW_NEW),
-        PA, PA8, cfg.n_layers)
+                                                  [prompts], n_new),
+        PA, PA8, n_attn)
     wall = time.perf_counter() - t0
     retired = eng.retire_msgs_total
     del eng
-    check(all(len(t) == WINDOW_NEW for t in want), "stream length")
+    check(all(len(t) == n_new for t in want), "stream length")
     check(0 < peak <= ring, f"a request held {peak} pages (ring {ring})")
     check(retired > 0, "no recycled page was retired")
     print(f"[{label}] failure-free [{card}]: {wall:.1f} s wall; most pages "
@@ -2192,8 +2291,8 @@ def moe_window_phase(card, cfg, params) -> int:
     slid = lambda e: busiest_decoding(e) if e.retire_msgs_total else None
     (got, reqs, peak, eng), n2 = counted(
         label, "instance kill after the slide",
-        lambda: engine_run(cfg, params, ecfg, [prompts], WINDOW_NEW,
-                           kill=slid), PA, PA8, cfg.n_layers)
+        lambda: engine_run(cfg, params, ecfg, [prompts], n_new,
+                           kill=slid), PA, PA8, n_attn)
     check(peak <= ring, f"a request held {peak} pages (ring {ring})")
     check(max(r.n_migrations for r in reqs) >= 1, "no request migrated")
     check(got == want, "streams through the kill differ from failure-free")
@@ -2239,8 +2338,10 @@ def moe_phases(card, dense_syncs, configs=MOE_CONFIGS) -> dict:
                                                   streams).items():
                 out[kernel] += k
         if cfg.sliding_window:
-            phase(f"moe window {name}")
-            out["paged_attention"] += moe_window_phase(card, cfg, params)
+            label = f"moe window {name}"
+            phase(label)
+            out["paged_attention"] += window_phase(
+                card, cfg, params, label, WINDOW_PROMPT, WINDOW_NEW)
         card_gib = torch.cuda.get_device_properties(0).total_memory / 2**30
         print(f"[{name}] {depth} layers: peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
@@ -2255,8 +2356,8 @@ def moe_phases(card, dense_syncs, configs=MOE_CONFIGS) -> dict:
 def serving_phases(card: str) -> dict:
     """The bf16 path, the int8 + chunked-prefill path, the prefix-cache and
     disaggregated paths, then the 8-instance fleet, all on the same
-    Llama-3.1-8B weights; then the other dense configs and the MoE
-    configs. Returns each kernel's launches on its paths."""
+    Llama-3.1-8B weights; then the other dense configs, the MoE configs and
+    the hybrid config. Returns each kernel's launches on its paths."""
     cfg = get_config("llama3-8b")
     print(f"model {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"vocab {cfg.vocab_size}, {cfg.n_params() / 1e9:.2f} B params, "
@@ -2281,11 +2382,304 @@ def serving_phases(card: str) -> dict:
     launches = dense_config_phases(card)
     for name, n in moe_phases(card, profile["syncs_per_step"]).items():
         launches[name] += n
+    for name, n in hybrid_phases(card, profile["syncs_per_step"]).items():
+        launches[name] += n
     return {"paged_attention": bf16 + launches["paged_attention"],
             "paged_attention_int8": int8 + launches["paged_attention_int8"]}
 
 
-# -- 23. mamba2 generation ----------------------------------------------------
+# -- 23.-25. hybrid config ----------------------------------------------------
+
+HYBRID_CONFIG = "recurrentgemma-9b"
+# the hybrid window phase: prompts of 2030 tokens (bucket 2048) and 48 new
+# tokens, so positions pass the 2048-token window and the first page is
+# retired at position 2063, 14 tokens before the end
+HYBRID_WINDOW_PROMPT, HYBRID_WINDOW_NEW = 2030, 48
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor in a nested dict / list of tensors."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def hybrid_step_bytes(cfg, params) -> int:
+    """Weight bytes one hybrid decode step must read: every layer's tensors
+    with the RG-LRU gate matrices as the f32 copies the step reads (not
+    their bf16 originals), the final norm and the unembedding (of the token
+    embedding only B rows, left out)."""
+    total = 0
+    for p, kind in zip(params["layers"], cfg.layer_kinds()):
+        total += tree_bytes(p)
+        if kind == "rglru":
+            total += sum(p[k].numel() * (4 - p[k].element_size())
+                         for k in ("wa", "wx_gate"))
+    emb = params["embed"]
+    return total + tree_bytes(emb["norm_f"]) + tree_bytes(emb["unembed"])
+
+
+def events_ms(fn, n=10) -> float:
+    """Elapsed device time per call of ``fn`` by CUDA events over ``n``
+    calls, after two warm-up calls."""
+    for _ in range(2):
+        fn()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / n
+
+
+def device_profile(fn, n=3) -> tuple:
+    """(device-busy ms, CUDA kernels) per call of ``fn`` under
+    torch.profiler: the kernels' own device time summed, gaps left out."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in kernels) / n / 1e3,
+            sum(e.count for e in kernels) / n)
+
+
+def hybrid_profile(card, cfg, params, gates, decode) -> dict:
+    """The hybrid's own costs: one RG-LRU layer's decode block at B 8
+    (device-busy time and kernels; times the 26 layers, its share of the
+    decode step's device-busy time), the step's weight-read bound, and the
+    sequential RG-LRU scan of prefill (one layer, one prompt of 256 and of
+    2048 positions): elapsed device time (CUDA events: the launches of one
+    addcmul per position leave the card waiting), device-busy time and
+    kernel launches."""
+    p, g = params["layers"][0], gates[0]
+    n_rg = len(hybrid.recurrent_layer_indices(cfg))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((8, 1, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    state = {"h": torch.zeros((8, cfg.lru_width), device="cuda"),
+             "conv": torch.zeros((8, hybrid.CONV_WIDTH - 1, cfg.lru_width),
+                                 dtype=torch.bfloat16, device="cuda")}
+    busy, launches = device_profile(
+        lambda: hybrid._recurrent_block(cfg, p, x, state, g))
+    nbytes = hybrid_step_bytes(cfg, params)
+    step_busy = decode["device_busy_ms"]
+    m = {"rglru_layer_device_busy_ms": busy,
+         "rglru_layers_device_busy_ms": busy * n_rg,
+         "rglru_share_of_step_device_busy":
+             busy * n_rg / step_busy if step_busy else None,
+         "rglru_layer_launches": launches,
+         "step_weight_bytes": nbytes,
+         "step_weight_read_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+         "decode_step_wall_ms": decode["decode_step_wall_ms"],
+         "step_device_busy_ms": step_busy}
+    for s in (256, 2048):
+        conv_out = torch.randn((1, s, cfg.lru_width), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+        scan = lambda: hybrid.rglru_scan(p, conv_out, g=g,  # noqa: E731
+                                         rows=PD.PREFILL_ROWS)
+        m[f"scan_{s}_layer_elapsed_ms"] = events_ms(scan, n=3)
+        (m[f"scan_{s}_layer_device_busy_ms"],
+         m[f"scan_{s}_layer_launches"]) = device_profile(scan, n=1)
+        m[f"scan_{s}_prefill_elapsed_ms"] = \
+            m[f"scan_{s}_layer_elapsed_ms"] * n_rg
+    print(f"hybrid profile [{cfg.name}] [{card}]: " + json.dumps(m))
+    return m
+
+
+def chunked_blob_difference(cfg, params, gates, prompt) -> float:
+    """Largest |difference| between the state blob of a monolithic prefill
+    of ``prompt`` and of chunks of 64 over the same bucket."""
+    n = len(prompt)
+    bucket = PD.next_bucket(n, lo=cfg.page_size)
+    toks = torch.zeros((1, bucket), dtype=torch.int32, device="cuda")
+    toks[0, :n] = torch.tensor(prompt, dtype=torch.int32)
+    whole = PD.prefill_hybrid_bucketed(cfg, params, toks, n, gates=gates)[3]
+    kb, vb = PD.init_chunk_buffers(cfg, bucket, device="cuda")
+    st = PD.init_hybrid_chunk_state(cfg, device="cuda")
+    c = min(64, bucket)
+    for c0 in range(0, n, c):
+        *_, st, blob = PD.prefill_hybrid_chunk(
+            cfg, params, toks[:, c0:c0 + c], c0, min(c, n - c0), kb, vb, st,
+            gates=gates)
+    return float((blob - whole).abs().max())
+
+
+def repl_bytes_ok(eng, cfg, quantized: bool, kind: str = "repl") -> bool:
+    """The transport's shipped bytes of ``kind`` equal its blocks and blobs
+    times the config's block and blob bytes."""
+    t = eng.transport.shipped[kind]
+    return t.bytes == t.blocks * block_bytes(cfg, quantized) \
+        + t.blobs * blob_bytes(cfg, quantized)
+
+
+def hybrid_invariants_phase(card, cfg, params, prompts, streams) -> dict:
+    """Phase "hybrid invariants NAME", engines stepped by hand, every
+    stream bit for bit: chunked prefill (chunks of 64) against the
+    monolithic streams of the config phase, and the largest blob
+    difference of the two prefills; the int8 pool with chunks of 64
+    through an instance kill against the same path without it; the
+    shared-prefix set with the prefix cache against cold serving (a hit
+    shares pages but recomputes the prompt: the RG-LRU state spans the
+    prefix); disaggregated against colocated, each handoff carrying its
+    blob. Returns each kernel's launches."""
+    label = f"hybrid invariants {cfg.name}"
+    n_attn = attn_layers(cfg)
+    out = {"paged_attention": 0, "paged_attention_int8": 0}
+    (got, _, _, _), n = counted(
+        label, "chunked prefill", lambda: engine_run(
+            cfg, params, EngineConfig(max_slots=8, max_seq=256,
+                                      prefill_chunk=64), [prompts], 32),
+        PA, PA8, n_attn)
+    out["paged_attention"] += n
+    check(got == streams, "chunked prefill (chunks of 64) streams differ "
+          "from monolithic prefill")
+    gates = hybrid.gate_tables(cfg, params)
+    diff = chunked_blob_difference(cfg, params, gates, prompts[4])
+    del gates
+    print(f"[{label}] chunked prefill (chunks of 64): all {len(got)} "
+          f"streams equal monolithic prefill; largest state-blob difference "
+          f"(200-token prompt, 4 chunks): {diff:.3e}")
+    check(diff == 0.0, "chunked and monolithic prefill state blobs differ")
+    ecfg = EngineConfig(max_slots=8, max_seq=256, kv_quant=True,
+                        prefill_chunk=64)
+    (want, _, _, eng), n = counted(
+        label, "int8 + chunks", lambda: engine_run(cfg, params, ecfg,
+                                                   [prompts], 32),
+        PA8, PA, n_attn)
+    out["paged_attention_int8"] += n
+    del eng
+    (got, reqs, _, eng), n = counted(
+        label, "int8 + chunks, instance kill",
+        lambda: engine_run(cfg, params, ecfg, [prompts], 32,
+                           kill=busiest_decoding), PA8, PA, n_attn)
+    out["paged_attention_int8"] += n
+    migrations = [r.n_migrations for r in reqs]
+    check(max(migrations) >= 1, "no request migrated")
+    check(got == want, "int8 + chunked streams through a kill differ from "
+          "the same path without it")
+    t = eng.transport.shipped["repl"]
+    check(t.blobs > 0 and repl_bytes_ok(eng, cfg, True),
+          f"int8 replication bytes {t.bytes} != {t.blocks} x "
+          f"{block_bytes(cfg, True)} + {t.blobs} x {blob_bytes(cfg, True)}")
+    print(f"[{label}] int8 pool, chunks of 64, instance kill: all "
+          f"{len(got)} streams equal the failure-free run; migrations "
+          f"{migrations}, retries {[r.n_retries for r in reqs]}; "
+          f"{t.blocks} blocks of {block_bytes(cfg, True)} B and {t.blobs} "
+          f"blobs of {blob_bytes(cfg, True)} B replicated")
+    del eng
+    ps = shared_prefix_set(cfg)
+    waves = [[ps.primer], ps.batch + [ps.xbucket] + ps.drill]
+    runs = {}
+    for name, kw in (("cold", {}), ("prefix cache", {"prefix_cache": True}),
+                     ("disaggregated", {"disaggregate": True})):
+        (got, _, _, eng), n = counted(
+            label, f"shared prefix ({name})",
+            lambda: engine_run(cfg, params, prefix_ecfg(cfg, **kw), waves,
+                               NEW_TOKENS), PA, PA8, n_attn)
+        out["paged_attention"] += n
+        runs[name] = got, eng.prefix_stats(), eng.disagg_stats(), \
+            repl_bytes_ok(eng, cfg, False, "handoff")
+        del eng
+    stats = runs["prefix cache"][1]
+    check(runs["prefix cache"][0] == runs["cold"][0],
+          "prefix-cached streams differ from cold serving")
+    check(stats["prefix_cached_tokens"] > 0, "no prefix-cache hit")
+    check(stats["prefill_compute_tokens"] == stats["prefill_total_tokens"],
+          "a hybrid prefix hit skipped prompt compute")
+    print(f"[{label}] prefix cache: all {len(runs['cold'][0])} streams "
+          f"equal cold; {stats['prefix_cached_tokens']} of "
+          f"{stats['prefill_total_tokens']} prompt tokens on shared pages, "
+          f"all {stats['prefill_compute_tokens']} recomputed")
+    dis = runs["disaggregated"][2]
+    check(runs["disaggregated"][0] == runs["cold"][0],
+          "disaggregated streams differ from colocated serving")
+    check(dis["handoffs_seated"] > 0
+          and dis["handoff_blobs_total"] == dis["handoffs_seated"]
+          and runs["disaggregated"][3],
+          f"handoffs {dis['handoffs_seated']} carried "
+          f"{dis['handoff_blobs_total']} blobs")
+    print(f"[{label}] disaggregated: all {len(runs['cold'][0])} streams "
+          f"equal colocated; {dis['handoffs_seated']} handoffs, "
+          f"{dis['handoff_blocks_total']} blocks and "
+          f"{dis['handoff_blobs_total']} blobs, {dis['handoff_bytes_total']}"
+          " B")
+    return out
+
+
+def hybrid_phases(card, dense_syncs) -> dict:
+    """recurrentgemma-9b at full width and full depth (all 38 layers) on
+    fresh random weights (torch.Generator seed 0): the config phase over
+    HTTP, the invariants, the window. Returns each attention kernel's
+    launches."""
+    cfg = get_config(HYBRID_CONFIG)
+    phase(f"hybrid config {cfg.name}")
+    before = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    nbytes = tree_bytes(params)
+    kinds = cfg.layer_kinds()
+    print(f"model {cfg.name}: all {cfg.n_layers} layers "
+          f"({kinds.count('rglru')} RG-LRU, {kinds.count('attn')} local "
+          f"attention), d_model {cfg.d_model}, lru_width {cfg.lru_width}, "
+          f"heads {cfg.n_heads}/{cfg.n_kv_heads} (rep {cfg.q_per_kv}), "
+          f"head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, window "
+          f"{cfg.sliding_window}, vocab {cfg.vocab_size}; {nbytes / 1e9:.2f}"
+          f" GB of params counted from the tensors (ModelConfig.n_params() "
+          f"says {cfg.n_params() / 1e9:.2f} B params: its RG-LRU term "
+          "leaves out the MLP and the gate matrices); random weights made "
+          f"in {time.perf_counter() - t0:.1f} s ({before:.1f} GiB allocated "
+          "before)")
+    check((block_bytes(cfg, False), blob_bytes(cfg, False),
+           block_bytes(cfg, True), blob_bytes(cfg, True))
+          == (196_608, 1_703_936, 99_072, 425_986), "block / blob bytes")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in SERVE_PROMPT_LENS]
+    prompts.append(list(prompts[1]))          # the same prompt twice
+    out = {"paged_attention": 0, "paged_attention_int8": 0}
+    n, _, profile, streams = run_path(
+        card, cfg, EngineConfig(max_slots=8, max_seq=256), PA, PA8,
+        cfg.name, prompts, params=params, repeat=True)
+    out["paged_attention"] += n
+    print(f"[{cfg.name}] synchronizing calls in one decode step: "
+          f"{profile['syncs_per_step']} (dense llama3-8b step: "
+          f"{dense_syncs})")
+    gates = hybrid.gate_tables(cfg, params)
+    hybrid_profile(card, cfg, params, gates, profile)
+    del gates
+    phase(f"hybrid invariants {cfg.name}")
+    for kernel, k in hybrid_invariants_phase(card, cfg, params, prompts,
+                                             streams).items():
+        out[kernel] += k
+    label = f"hybrid window {cfg.name}"
+    phase(label)
+    out["paged_attention"] += window_phase(
+        card, cfg, params, label, HYBRID_WINDOW_PROMPT, HYBRID_WINDOW_NEW)
+    card_gib = torch.cuda.get_device_properties(0).total_memory / 2**30
+    print(f"[{cfg.name}] {cfg.n_layers} layers: peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB reserved, "
+          f"of the card's {card_gib:.2f} GiB [{card}]")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- 26. mamba2 generation ----------------------------------------------------
 
 @contextlib.contextmanager
 def plain_scan_calls():
@@ -2518,14 +2912,21 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     phase("build")
-    build_all()
+    ptxas = start_ptxas_report()
+    try:
+        build_all()
 
-    phase("kernel")
-    entries = [kernel_phase()]
-    phase("kernel (int8)")
-    entries.append(kernel_int8_phase())
-    phase("kernel (head geometries)")
-    geometry = geometry_phase(card)
+        phase("kernel")
+        entries = [kernel_phase()]
+        phase("kernel (int8)")
+        entries.append(kernel_int8_phase())
+        phase("kernel (head geometries)")
+        geometry = geometry_phase(card)
+        print_d256_resources(ptxas, card)
+    finally:
+        if ptxas.poll() is None:
+            ptxas.kill()
+            ptxas.wait()
     phase("kernel (ssd_scan)")
     entries.append(ssd_scan_phase())
 

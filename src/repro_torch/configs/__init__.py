@@ -1,20 +1,21 @@
 """Config registry: ``get_config("<arch-id>")`` for the architectures the
 port runs so far: the dense family (``llama3-8b``, ``yi-9b``,
 ``qwen1.5-0.5b``, ``qwen1.5-32b``, ``deepseek-67b``), the MoE family
-(``mixtral-8x7b``, ``dbrx-132b``) and the SSM family's ``mamba2-130m``."""
+(``mixtral-8x7b``, ``dbrx-132b``), the SSM family's ``mamba2-130m`` and
+the hybrid family's ``recurrentgemma-9b``."""
 from repro_torch.configs.base import (  # noqa: F401 — re-exported
     ARCH_TYPES, INPUT_SHAPES, InputShape, ModelConfig, shape_applicable,
 )
 
 from repro_torch.configs import (
     dbrx_132b, deepseek_67b, llama3_8b, mamba2_130m, mixtral_8x7b,
-    qwen1_5_0_5b, qwen1_5_32b, yi_9b,
+    qwen1_5_0_5b, qwen1_5_32b, recurrentgemma_9b, yi_9b,
 )
 
 _REGISTRY = {
     m.CONFIG.name: m.CONFIG
     for m in (qwen1_5_0_5b, mamba2_130m, yi_9b, qwen1_5_32b, mixtral_8x7b,
-              deepseek_67b, dbrx_132b, llama3_8b)
+              deepseek_67b, dbrx_132b, llama3_8b, recurrentgemma_9b)
 }
 
 

@@ -1,6 +1,7 @@
 """Reference params -> torch params, bit for bit.
 
-``from_jax_numpy`` takes the reference's param pytree as nested dicts of
+``from_jax_numpy`` takes the reference's param pytree as nested dicts (and
+lists or tuples: the hybrid family keeps one dict per layer in a list) of
 NUMPY arrays (the caller runs ``np.asarray`` on each leaf on the JAX side)
 and returns the same structure as torch tensors. A bfloat16 leaf arrives as
 an ``ml_dtypes.bfloat16`` array, which ``torch.from_numpy`` rejects; its
@@ -22,8 +23,11 @@ def _leaf(arr, device) -> torch.Tensor:
 
 
 def from_jax_numpy(tree, device="cuda"):
-    """Nested dicts of numpy arrays -> nested dicts of torch tensors on
-    ``device``, bit-exact (layer-stacked leaves keep their leading L axis)."""
+    """Nested dicts, lists and tuples of numpy arrays -> the same structure
+    of torch tensors on ``device``, bit-exact (layer-stacked leaves keep
+    their leading L axis; a list or tuple keeps its order and its type)."""
     if isinstance(tree, dict):
         return {k: from_jax_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(from_jax_numpy(v, device) for v in tree)
     return _leaf(tree, device)

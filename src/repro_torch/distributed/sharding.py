@@ -4,16 +4,19 @@ degraded layout a shard loss leaves — in plain Python over shapes.
 A mesh is a dict from axis name to size (``{"data": 1, "model": 4}``); a
 spec is a tuple with one entry per tensor dim: an axis name, a tuple of
 axis names, or ``None`` (replicated along that dim). A tree is nested dicts
-whose leaves carry ``.shape`` and ``.dtype`` (torch tensors, meta tensors
-included, or ``Leaf``); a path is the tuple of dict keys down to a leaf.
+and lists whose leaves carry ``.shape`` and ``.dtype`` (torch tensors, meta
+tensors included, or ``Leaf``); a path is the tuple of dict keys and list
+indices (as strings) down to a leaf.
 
 The rules are the reference package's, so a summary computed here equals
 its summary for the same shapes:
 
   * weights (2D+): last dim -> "model" when divisible; under the
     ``baseline`` profile also a leading non-layer dim -> "data". The
-    stacked layer axis (every leaf under ``"layers"``) is never sharded.
-    Fallback = replicate the offending dim.
+    stacked layer axis (every leaf under ``"layers"``) is never sharded; the
+    rule reads the path, so it holds the first dim of the hybrid's
+    per-layer matrices too, as the reference's does. Fallback = replicate
+    the offending dim.
   * decode caches: dense k/v (L, B, C, K, D) and int8 scales (L, B, C, K,
     1) -> (None, data, model@C, None, None); ssm and hybrid states by
     width.
@@ -128,10 +131,14 @@ def param_spec(path: Tuple[str, ...], shape: Tuple[int, ...], m: Mesh,
 
 
 def _leaves(tree, path=()):
-    """(path, leaf) over a nested dict, keys in sorted order."""
+    """(path, leaf) over nested dicts (keys in sorted order) and lists (in
+    index order)."""
     if isinstance(tree, dict):
         for key in sorted(tree):
             yield from _leaves(tree[key], path + (str(key),))
+    elif isinstance(tree, list):
+        for i, sub in enumerate(tree):
+            yield from _leaves(sub, path + (str(i),))
     else:
         yield path, tree
 
@@ -190,11 +197,20 @@ def cache_specs(cache_shape, m: Mesh, arch_type: str):
 
 
 def decode_cache_shape(cfg, batch: int, seq_len: int) -> Dict[str, Leaf]:
-    """The dense decode cache's leaves for ``batch`` sequences of up to
-    ``seq_len`` tokens: k/v (L, B, C, K, D) in the stored dtype (int8 on an
-    int8-cache config), plus (L, B, C, K, 1) bf16 scales there. Shapes
-    only: nothing is allocated."""
+    """The model-level decode cache's leaves for ``batch`` sequences of up
+    to ``seq_len`` tokens. Dense/MoE: k/v (L, B, C, K, D) in the stored
+    dtype (int8 on an int8-cache config), plus (L, B, C, K, 1) bf16 scales
+    there. Hybrid: per layer ("layer_i") the RG-LRU h (B, w) f32 and conv
+    (B, 3, w) bf16, or ring k/v (B, window, K, D) bf16. Shapes only:
+    nothing is allocated."""
     cap = api.decode_capacity(cfg, seq_len)
+    if cfg.arch_type == "hybrid":
+        w = cfg.lru_width
+        kv = Leaf((batch, cap, cfg.n_kv_heads, cfg.head_dim), torch.bfloat16)
+        return {f"layer_{i}": {"h": Leaf((batch, w), torch.float32),
+                               "conv": Leaf((batch, 3, w), torch.bfloat16)}
+                if kind == "rglru" else {"k": kv, "v": kv}
+                for i, kind in enumerate(cfg.layer_kinds())}
     shape = (cfg.n_layers, batch, cap, cfg.n_kv_heads, cfg.head_dim)
     quant = cfg.kv_dtype == "int8"
     dtype = torch.int8 if quant else L.torch_dtype(cfg.kv_dtype)

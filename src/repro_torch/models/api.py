@@ -7,10 +7,12 @@ Every family the port brings exposes:
   prefill(cfg, params, tokens)         -> (last logits, cache, pos)
   decode_step(cfg, params, token, cache, pos) -> (logits, cache)
 
-So far those are the MoE family (Mixtral, DBRX) and the SSM family
-(Mamba-2). The dense family is served through the paged engine
-(``serving/engine.py``) and ``init_params`` initialises it; its non-paged
-model API, like the other families', is still to port and raises
+So far those are the MoE family (Mixtral, DBRX), the SSM family (Mamba-2)
+and the hybrid family (RecurrentGemma; its params keep one dict per layer
+in a list, not layer-stacked). The dense family is served through the
+paged engine (``serving/engine.py``) and ``init_params`` initialises it;
+its non-paged model API, like the other families', is still to port and
+raises
 ``NotImplementedError`` naming its ROADMAP.md item. ``loss`` and
 ``next_token_loss`` come with training.
 
@@ -23,14 +25,13 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import moe, ssm, transformer
+from repro_torch.models import hybrid, moe, ssm, transformer
 
-_FAMILIES = {"moe": moe, "ssm": ssm}
+_FAMILIES = {"moe": moe, "ssm": ssm, "hybrid": hybrid}
 
 # families whose model API is still to port -> the ROADMAP.md item
 _TO_PORT = {
     "dense": "Queue 1 item 13 (the non-paged dense model API)",
-    "hybrid": "Queue 1 item 11 (models/hybrid.py)",
     "vlm": "Queue 1 item 13 (models/vlm.py)",
     "audio": "Queue 1 item 13 (models/encoder.py)",
 }

@@ -44,10 +44,15 @@ stay model-sharded over the surviving shards, the bytes per shard) is
 computed over shapes (``distributed/sharding.py``) and reported, not
 executed; decode on the surviving slots is unchanged.
 
-This port serves the dense and MoE families (``paged_decode.PAGED_FAMILIES``)
-with monolithic or chunked prefill, a bf16 or int8 KV pool, prefix caching
-and prefill/decode disaggregation. The families ride one code path and
-differ only in each layer's MLP (``paged_decode.mlp_apply``).
+Every serving family (``paged_decode.PAGED_FAMILIES``) rides this one code
+path, with monolithic or chunked prefill, a bf16 or int8 KV pool, prefix
+caching and prefill/decode disaggregation. Dense and MoE differ only in
+each layer's MLP (``paged_decode.mlp_apply``); the hybrid family
+(RecurrentGemma) pages its local-attention layers and carries each
+request's RG-LRU state as one fixed-size blob in the pool's blob store —
+dirtied every decode step, delta-replicated beside the KV blocks (so a
+step ships at most one KV block and one blob per request), and promoted in
+place on failover.
 """
 from __future__ import annotations
 
@@ -60,6 +65,7 @@ import torch
 
 from repro_torch.distributed import sharding as SH
 from repro_torch.models import api
+from repro_torch.models import hybrid as H
 from repro_torch.models import layers as L
 from repro_torch.models import paged_decode as PD
 from repro_torch.serving.api_types import FaultSpec
@@ -138,28 +144,53 @@ def _check_ported(cfg):
 
 
 class FamilyExecutor:
-    """The prefill + decode programs for one (cfg, EngineConfig) pair, shared
-    by every instance — including a warm spare rejoining after a failure.
-    Decode updates the pool buffers (and an int8 pool's scales, None
-    otherwise) in place; a prefill chunk updates its carry buffers in
-    place."""
+    """The prefill + decode programs for one (cfg, EngineConfig, params)
+    triple, shared by every instance — including a warm spare rejoining
+    after a failure. Decode updates the pool buffers (and an int8 pool's
+    scales, None otherwise) in place; a prefill chunk updates its carry
+    buffers in place.
 
-    def __init__(self, cfg, ecfg: EngineConfig):
+    The hybrid family's programs take the pool's blobs and blob slots too,
+    and run their RG-LRU gates on f32 copies of ``wa`` and ``wx_gate`` made
+    here once from ``params`` (``hybrid.gate_tables``: exact upcasts, so
+    the arithmetic is the per-call upcast's), not on every call."""
+
+    def __init__(self, cfg, ecfg: EngineConfig, params=None):
         _check_ported(cfg)
         temp = ecfg.temperature
+        if cfg.arch_type == "hybrid":
+            if params is None:
+                raise ValueError("the hybrid family's executor needs the "
+                                 "params (its f32 gate weights)")
+            gates = H.gate_tables(cfg, params)
 
-        def decode(p, tok, k_pages, v_pages, ks, vs, bt, pos, base,
-                   generator):
-            return PD.decode_step_paged(cfg, p, tok, k_pages, v_pages, bt,
-                                        pos, generator, base=base,
-                                        k_scales=ks, v_scales=vs,
-                                        temperature=temp)
+            def decode(p, tok, k_pages, v_pages, ks, vs, blobs, bscales, bt,
+                       bslots, pos, base, generator):
+                return PD.decode_step_paged_hybrid(
+                    cfg, p, tok, k_pages, v_pages, blobs, bt, bslots, pos,
+                    generator, base=base, k_scales=ks, v_scales=vs,
+                    blob_scales=bscales, temperature=temp, gates=gates)
 
+            self.prefill = lambda p, toks, n: PD.prefill_hybrid_bucketed(
+                cfg, p, toks, n, gates=gates)
+            self.prefill_chunk = (
+                lambda p, toks, start, take, kb, vb, st:
+                PD.prefill_hybrid_chunk(cfg, p, toks, start, take, kb, vb,
+                                        st, gates=gates))
+        else:
+            def decode(p, tok, k_pages, v_pages, ks, vs, bt, pos, base,
+                       generator):
+                return PD.decode_step_paged(cfg, p, tok, k_pages, v_pages,
+                                            bt, pos, generator, base=base,
+                                            k_scales=ks, v_scales=vs,
+                                            temperature=temp)
+
+            self.prefill = lambda p, toks, n: PD.prefill_bucketed(cfg, p,
+                                                                  toks, n)
+            self.prefill_chunk = (
+                lambda p, toks, start, take, kb, vb:
+                PD.prefill_chunk(cfg, p, toks, start, take, kb, vb))
         self.decode = decode
-        self.prefill = lambda p, toks, n: PD.prefill_bucketed(cfg, p, toks, n)
-        self.prefill_chunk = (
-            lambda p, toks, start, take, kb, vb:
-            PD.prefill_chunk(cfg, p, toks, start, take, kb, vb))
         # chunk size normalized to a power of two >= the page size, so
         # chunks tile the power-of-two prefill bucket exactly
         self.chunk = PD.next_bucket(ecfg.prefill_chunk, lo=cfg.page_size) \
@@ -200,10 +231,16 @@ class RealInstance:
         self.window = cfg.sliding_window
         self.pages_per_seq = PD.table_pages(cfg, S)
         n_blocks = 2 * B * self.pages_per_seq + 1  # primaries+replicas+scratch
+        # hybrid: recurrent state blobs ride in the pool next to the KV
+        # blocks (B primaries + B hosted replicas + 1 scratch)
+        blob_words = H.state_blob_words(cfg) if self.family == "hybrid" \
+            else 0
         self.pool = PagedKVPool(
             n_blocks, page, n_layers=len(PD.kv_layer_indices(cfg)),
             n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim, real=True,
-            dtype=PD.kv_dtype(cfg), window=self.window, device=self.device,
+            dtype=PD.kv_dtype(cfg), blob_words=blob_words,
+            n_blobs=(2 * B + 1) if blob_words else 0, window=self.window,
+            device=self.device,
             quantized=ecfg.kv_quant, prefix_cache=ecfg.prefix_cache,
             # chain-hash identity: a page is only reusable under the same
             # model AND the same on-page byte representation
@@ -221,12 +258,17 @@ class RealInstance:
         # (rid, logical_idx) of pages recycled this step: the engine turns
         # these into retire messages for the ring peer hosting the replica
         self.pending_retires: List[tuple] = []
+        # idle slots read and write one scratch blob, never freed
+        self.scratch_blob = 0
+        if blob_words:
+            self.scratch_blob = self.pool.allocate_blob(SCRATCH_RID).slot
+        self.slot_blob = np.full(B, self.scratch_blob, np.int32)
         self.requests: Dict[int, Request] = {}
         # per-instance sampling stream (used only when temperature > 0)
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(instance_id + 1)
         self.clock = clock
-        ex = executor or FamilyExecutor(cfg, ecfg)
+        ex = executor or FamilyExecutor(cfg, ecfg, params)
         self._decode = ex.decode
         self._prefill = ex.prefill
         self._prefill_chunk = ex.prefill_chunk
@@ -239,13 +281,15 @@ class RealInstance:
         self.prefill_compute_tokens = 0
         self.prefix_cached_tokens = 0
         # chunk buffers can be seeded from pool pages only when the page
-        # bytes ARE the activation dtype (int8 pages are lossy) — shared by
-        # the prefix cache's compute skip and the streamed-handoff resume.
-        # Ineligible configs still share pages: they recompute the whole
-        # prompt but skip the writes to shared pages (deterministic
-        # recompute reproduces the interned bytes)
+        # bytes ARE the activation dtype (int8 pages are lossy) and the
+        # family carries no cross-page recurrent state (the hybrid's RG-LRU
+        # summarizes the whole prefix) — shared by the prefix cache's
+        # compute skip and the streamed-handoff resume. Ineligible configs
+        # still share pages: they recompute the whole prompt but skip the
+        # writes to shared pages (deterministic recompute reproduces the
+        # interned bytes)
         self._can_seed_chunks = (
-            self.chunk > 0 and not ecfg.kv_quant
+            self.chunk > 0 and self.family != "hybrid" and not ecfg.kv_quant
             and L.torch_dtype(cfg.dtype) == PD.kv_dtype(cfg))
         self.prefix_skip_compute = ecfg.prefix_cache and self._can_seed_chunks
 
@@ -302,8 +346,9 @@ class RealInstance:
         self.degraded_layout = None
 
     def _allocate(self, rid: int, n_tokens: int, token_ids=None):
-        """Allocate primary blocks, evicting hosted replicas under pressure
-        (the paper's rule: replicas are the first thing dropped)."""
+        """Allocate primary blocks (and, for hybrid, the state blob),
+        evicting hosted replicas under pressure (the paper's rule: replicas
+        are the first thing dropped)."""
         need = self.pool.resident_blocks_for(n_tokens)
         protect = ()
         if self.ecfg.prefix_cache and token_ids is not None \
@@ -330,6 +375,13 @@ class RealInstance:
             self.pending_retires.extend(
                 (r.rid, r.logical_idx)
                 for r in self.pool.drain_pending_recycles())
+        if self.family == "hybrid":
+            self.pool.evict_blob_replicas_for_pressure()
+            try:
+                self.pool.allocate_blob(rid)
+            except MemoryError:
+                self.pool.free(rid)
+                raise
         return refs
 
     def admit(self, req: Request, now: float = 0.0) -> bool:
@@ -393,9 +445,20 @@ class RealInstance:
                 "req": req, "refs": refs, "toks": toks, "bucket": bucket,
                 "done": done,
                 "pages_written": skip_pages if cow_page < 0 else cow_page,
-                "cow_page": cow_page, "k_buf": k_buf, "v_buf": v_buf}
+                "cow_page": cow_page, "k_buf": k_buf, "v_buf": v_buf,
+                "rstates": PD.init_hybrid_chunk_state(self.cfg,
+                                                      device=self.device)
+                if self.family == "hybrid" else None}
             return True
-        logits, k_seq, v_seq = self._prefill(self.params, self._tensor(toks), n)
+        if self.family == "hybrid":
+            logits, k_seq, v_seq, blob = self._prefill(
+                self.params, self._tensor(toks), n)
+            bref = self.pool.blob_ref(req.rid)
+            self.pool.write_blob(bref.slot, blob[0])
+            self.slot_blob[slot] = bref.slot
+        else:
+            logits, k_seq, v_seq = self._prefill(self.params,
+                                                 self._tensor(toks), n)
         self.prefill_compute_tokens += n   # monolithic: always full compute
         # windowed archs: only the window-covering tail pages were allocated
         # (refs[0].logical_idx > 0 for long prompts) — write just those.
@@ -470,9 +533,14 @@ class RealInstance:
             c = min(self.chunk, job["bucket"])
             c0 = job["done"]
             take = min(c, n - c0)
-            logits, _, _ = self._prefill_chunk(
-                self.params, self._tensor(job["toks"][:, c0:c0 + c]), c0,
-                take, job["k_buf"], job["v_buf"])
+            tc = self._tensor(job["toks"][:, c0:c0 + c])
+            if self.family == "hybrid":
+                logits, _, _, job["rstates"], blob = self._prefill_chunk(
+                    self.params, tc, c0, take, job["k_buf"], job["v_buf"],
+                    job["rstates"])
+            else:
+                logits, _, _ = self._prefill_chunk(
+                    self.params, tc, c0, take, job["k_buf"], job["v_buf"])
             job["done"] = c0 + take
             self.prefill_compute_tokens += take
             req.prefill_progress = job["done"] / n
@@ -480,12 +548,17 @@ class RealInstance:
             final = job["done"] >= n
             self._write_ready_pages(job, final)
             if final:
+                if self.family == "hybrid":
+                    bref = self.pool.blob_ref(req.rid)
+                    self.pool.write_blob(bref.slot, blob[0])
+                    self.slot_blob[slot] = bref.slot
                 if self.handoff_mode:
-                    # disaggregation: the prompt's pages are in the pool but
-                    # the slot parks in PREFILL state — the engine streams
-                    # the remaining pages to the decode target and seats the
-                    # request THERE. The first token is sampled now, so TTFT
-                    # means prefill completion, as colocated.
+                    # disaggregation: the prompt's pages (and blob) are in
+                    # the pool but the slot parks in PREFILL state — the
+                    # engine streams the remaining pages to the decode
+                    # target and seats the request THERE. The first token
+                    # is sampled now, so TTFT means prefill completion, as
+                    # colocated.
                     self._first_token(req, logits, now)
                     self.ready_handoffs.append(
                         {"slot": slot, "req": req, "refs": job["refs"],
@@ -570,12 +643,22 @@ class RealInstance:
                     table[0].logical_idx * self.pool.page_size
             else:
                 self.block_table[i, ref.logical_idx] = ref.slot
+            # the recurrent state advances every step: its blob is dirty
+            self.pool.mark_blob_dirty(rid)
         pool = self.pool
-        nxt, _ = self._decode(
-            self.params, self._tensor(toks), pool.k, pool.v, pool.k_scale,
-            pool.v_scale, self._tensor(self.block_table),
-            self._tensor(self.slot_pos), self._tensor(self.slot_base),
-            self._generator)
+        if self.family == "hybrid":
+            nxt, _ = self._decode(
+                self.params, self._tensor(toks), pool.k, pool.v,
+                pool.k_scale, pool.v_scale, pool.blobs, pool.blob_scales,
+                self._tensor(self.block_table), self._tensor(self.slot_blob),
+                self._tensor(self.slot_pos), self._tensor(self.slot_base),
+                self._generator)
+        else:
+            nxt, _ = self._decode(
+                self.params, self._tensor(toks), pool.k, pool.v,
+                pool.k_scale, pool.v_scale, self._tensor(self.block_table),
+                self._tensor(self.slot_pos), self._tensor(self.slot_base),
+                self._generator)
         nxt = nxt.cpu().numpy()        # the step's single host sync
         finished = []
         for i in active:
@@ -592,7 +675,7 @@ class RealInstance:
         return finished
 
     def release(self, rid: int):
-        """Free a request's engine slot + primary blocks."""
+        """Free a request's engine slot + primary blocks (+ state blob)."""
         if rid in self.requests:
             slot = self.slot_rid.index(rid)
             self.prefill_jobs.pop(slot, None)
@@ -600,6 +683,7 @@ class RealInstance:
             self.slot_pos[slot] = 0
             self.slot_base[slot] = 0
             self.block_table[slot] = self.scratch
+            self.slot_blob[slot] = self.scratch_blob
             self.pool.free(rid)
             self.requests.pop(rid)
 
@@ -621,16 +705,17 @@ class RealInstance:
     # -- failover --------------------------------------------------------------
     def adopt_replica(self, peer: int, req: Request, meta,
                       migration: bool = True) -> bool:
-        """Failover entry: promote hosted replica blocks to primary and
-        resume the request here — no buffer copy, just ownership flip. The
-        promoted table must contiguously cover every page the next decode
-        step can attend to."""
+        """Failover entry: promote hosted replica blocks (and a hybrid's
+        state blob) to primary and resume the request here — no buffer
+        copy, just ownership flip. The promoted table must contiguously
+        cover every page the next decode step can attend to."""
         slots = self.free_slots()
         if not slots or not self.alive:
             return False
         page = self.pool.page_size
         total = meta["pos"]
         refs = self.pool.promote_replica(peer, req.rid)
+        bref = self.pool.blob_ref(req.rid)
         for ref in refs:
             ref.n_filled = max(0, min(page, total - ref.logical_idx * page))
             ref.replicated = False     # re-replicate to OUR ring target
@@ -647,7 +732,7 @@ class RealInstance:
             and pages == list(range(pages[0], pages[0] + len(pages)))
             and len(refs) <= self.pages_per_seq
             and all(r.n_filled > 0 for r in refs))
-        if not complete:
+        if not complete or (self.family == "hybrid" and bref is None):
             self.pool.free(req.rid)    # incomplete replica: can't resume
             return False
         slot = slots[0]
@@ -655,6 +740,9 @@ class RealInstance:
         row[:len(refs)] = [r.slot for r in refs]
         self.block_table[slot] = row
         self.slot_base[slot] = refs[0].logical_idx * page
+        if bref is not None:
+            bref.replicated = False
+            self.slot_blob[slot] = bref.slot
         self.slot_pos[slot] = total
         req.output_tokens = list(meta["tokens"])
         req.state = RequestState.DECODE
@@ -667,13 +755,13 @@ class RealInstance:
 
     # -- disaggregated handoff (decode side) -----------------------------------
     def seat_handoff(self, peer: int, req: Request) -> bool:
-        """Seat a fully-streamed prefill: promote the hosted pages to
-        primary and start decoding — the handoff twin of ``adopt_replica``,
-        minus the migration count (a handoff is the normal path, not a
-        failure). The promoted pages carry the exact bytes the prefill
-        wrote, so decode is byte-identical to colocated serving. Returns
-        False (hosted table untouched) when no slot is free yet — the
-        engine retries next step."""
+        """Seat a fully-streamed prefill: promote the hosted pages (and
+        blob) to primary and start decoding — the handoff twin of
+        ``adopt_replica``, minus the migration count (a handoff is the
+        normal path, not a failure). The promoted pages carry the exact
+        bytes the prefill wrote, so decode is byte-identical to colocated
+        serving. Returns False (hosted table untouched) when no slot is
+        free yet — the engine retries next step."""
         meta = {"pos": req.prompt_len, "tokens": list(req.output_tokens)}
         if not self.adopt_replica(peer, req, meta, migration=False):
             return False
@@ -785,13 +873,13 @@ class RealEngine:
         # monotonic engine time: ticks (one per step) by default, or the
         # injected wall clock
         self.clock = clock
-        self.executor = FamilyExecutor(cfg, self.ecfg)
         # decoupled init: ONE weight materialization shared by all replicas
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
             params = api.init_params(cfg, gen, device=self.device)
         self.params = params
+        self.executor = FamilyExecutor(cfg, self.ecfg, params)
         # prefill/decode disaggregation: the first max(1, n//2) instances
         # take the prefill role, the rest decode; without it every
         # instance is colocated ("both")
@@ -877,9 +965,13 @@ class RealEngine:
     def repl_shared_copies_total(self) -> int:
         return self.transport.shipped["repl"].shared_copies
 
-    # state blobs ride only with the hybrid family, not ported yet
-    repl_blobs_total = 0
-    repl_blobs_staged = 0
+    @property
+    def repl_blobs_total(self) -> int:
+        return self.transport.shipped["repl"].blobs
+
+    @property
+    def repl_blobs_staged(self) -> int:
+        return self.transport.staged["repl"].blobs
 
     @property
     def repl_blocks_staged(self) -> int:
@@ -1097,6 +1189,8 @@ class RealEngine:
             tgt = self.instances[tgt_id]
             src_slots: List[int] = []
             dst_slots: List[int] = []
+            blob_src: List[int] = []
+            blob_dst: List[int] = []
             shared_copies = 0
             for rid, req in inst.requests.items():
                 # mid-chunked-prefill requests have no complete page set to
@@ -1117,33 +1211,53 @@ class RealEngine:
                 reconcile_replica(inst.pool, tgt.pool, inst.instance_id,
                                   rid, table, prefix_cache=pc)
                 rtab = tgt.pool.replica_table(inst.instance_id, rid)
+                grown = None
                 if len(table) > len(rtab):
                     grown = host_table_growth(
                         inst.pool, tgt.pool, inst.instance_id, rid, table,
                         prefix_cache=pc)
                     if grown is None:
                         continue   # no headroom on target; retry next pass
+                bref = inst.pool.blob_ref(rid)
+                rbref = None
+                if bref is not None:   # hybrid: the state blob rides along
+                    if not tgt.pool.host_blob_replica(inst.instance_id, rid):
+                        # KV without state cannot be resumed: roll back this
+                        # pass's hostings (pages it interned never ship),
+                        # then drop the stale earlier table
+                        if grown is not None:
+                            grown.rollback(tgt.pool, inst.instance_id, rid)
+                        tgt.pool.drop_replica(inst.instance_id, rid)
+                        continue
+                    rbref = tgt.pool.blob_replica_ref(inst.instance_id, rid)
+                if grown is not None:
                     self._commit_shared_hostings(tgt_id, grown)
                     for s, d in grown.copies:
                         src_slots.append(s)
                         dst_slots.append(d)
                     shared_copies += len(grown.copies)
-                    rtab = tgt.pool.replica_table(inst.instance_id, rid)
+                rtab = tgt.pool.replica_table(inst.instance_id, rid)
                 # copy when the primary block is dirty OR the hosted block
                 # has never received content (fresh hosting)
                 s, d = collect_dirty(tgt.pool, table, rtab, full=full,
                                      prefix_cache=pc)
                 src_slots += s
                 dst_slots += d
+                if bref is not None and \
+                        (full or not bref.replicated or not rbref.replicated):
+                    blob_src.append(bref.slot)
+                    blob_dst.append(rbref.slot)
+                    bref.replicated = rbref.replicated = True
                 self.replica_meta[rid] = {
                     "peer": inst.instance_id, "home": tgt_id,
                     "pos": int(inst.slot_pos[inst.slot_of(rid)]),
                     "tokens": list(req.output_tokens),
                 }
                 req.replicated_through = req.total_len
-            if src_slots:
+            if src_slots or blob_src:
                 self.transport.stage("repl", inst.instance_id, tgt_id,
                                      (src_slots, dst_slots),
+                                     (blob_src, blob_dst),
                                      shared_copies=shared_copies)
 
     # -- prefill/decode disaggregation (handoff stream) ------------------------
@@ -1166,8 +1280,8 @@ class RealEngine:
         """Stream ``inst``'s prefill output: every fully-covered prompt
         page written since the last pass is hosted on (and staged to) the
         decode target; a prompt whose final chunk just ran streams its
-        whole remainder (partial tail page included) and is marked ready
-        to seat once those bytes land."""
+        whole remainder (partial tail page and hybrid blob included) and is
+        marked ready to seat once those bytes land."""
         for h in inst.drain_ready_handoffs():
             rec = self._handoffs.setdefault(
                 h["req"].rid, {"src": inst.instance_id, "dst": None,
@@ -1239,7 +1353,18 @@ class RealEngine:
                              prefix_cache=pc)
         src_slots += s
         dst_slots += d
-        if src_slots:
+        blob_src: List[int] = []
+        blob_dst: List[int] = []
+        if rec.get("final") and inst.family == "hybrid":
+            if not dst.pool.host_blob_replica(inst.instance_id, rid):
+                return      # retry next step; KV pages stay hosted
+            rbref = dst.pool.blob_replica_ref(inst.instance_id, rid)
+            bref = inst.pool.blob_ref(rid)
+            if not rbref.replicated:
+                blob_src.append(bref.slot)
+                blob_dst.append(rbref.slot)
+                bref.replicated = rbref.replicated = True
+        if src_slots or blob_src:
             gen = rec["gen"]
 
             def landed(rec=rec, gen=gen):
@@ -1248,9 +1373,11 @@ class RealEngine:
             rec["inflight"] += 1
             self.transport.stage(
                 "handoff", inst.instance_id, rec["dst"],
-                (src_slots, dst_slots), shared_copies=shared_copies,
-                on_shipped=landed)
-        if rec.get("final") and len(rtab) == len(refs):
+                (src_slots, dst_slots), (blob_src, blob_dst),
+                shared_copies=shared_copies, on_shipped=landed)
+        if rec.get("final") and len(rtab) == len(refs) and \
+                (inst.family != "hybrid"
+                 or dst.pool.blob_replica_ref(inst.instance_id, rid)):
             rec["ready_to_seat"] = True
 
     def _complete_handoffs(self):
@@ -1277,10 +1404,12 @@ class RealEngine:
         return {
             "mode": self.ecfg.replication if self.ecfg.replicate else "off",
             "blocks_total": self.repl_blocks_total,
+            "blobs_total": self.repl_blobs_total,
             "bytes_total": self.repl_bytes_total,
             "blocks_per_step": self.repl_blocks_total / steps,
             "bytes_per_step": self.repl_bytes_total / steps,
             "blocks_per_request_step": self.repl_blocks_total / req_steps,
+            "blobs_per_request_step": self.repl_blobs_total / req_steps,
             "retire_msgs_total": self.retire_msgs_total,
             "retires_per_request_step": self.retire_msgs_total / req_steps,
             # replication landing on degraded targets (placement
@@ -1303,8 +1432,7 @@ class RealEngine:
             "handoffs_seated": self.handoffs_seated,
             "handoff_streams_resumed": self.handoff_streams_resumed,
             "handoff_blocks_total": shipped.blocks,
-            # state blobs ride only with the hybrid family, not ported yet
-            "handoff_blobs_total": 0,
+            "handoff_blobs_total": shipped.blobs,
             "handoff_bytes_total": shipped.bytes,
             "handoff_shared_zero_copy_pages":
                 self.repl_shared_refs_total - shipped.shared_copies
@@ -1506,6 +1634,7 @@ class RealEngine:
                     self.replica_meta.pop(rid)
                     for ref in other.pool.table(rid):
                         ref.replicated = False
+                    other.pool.mark_blob_dirty(rid)
         # the dead pool's interned pages died with it: forget its hosting
         # keys so a re-host after rejoin counts as a fresh hosting AND a
         # fresh copy — the ship-ratio denominator tracks live state

@@ -10,8 +10,10 @@ logic is identical.
 The pool is unquantized, or int8 with per-(layer, head, token) scales
 (``quantized=True``). With ``prefix_cache=True`` fully-covered prompt pages
 are interned by chain hash and shared by reference (copy-on-write on
-divergence). This port has no state blobs yet: they arrive with the hybrid
-family.
+divergence). A blob store beside the blocks holds fixed-size opaque state
+blobs, one per request (``blob_words`` f32 words; int8 with one scale per
+blob on an int8 pool): the hybrid family's RG-LRU state, replicated,
+hosted, promoted and evicted like a KV block.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ class BlockRef:
     slot: int
     n_filled: int = 0          # tokens currently valid in this block
     replicated: bool = False   # safely copied to the replica target?
+    kind: str = "kv"           # "kv" (paged KV block) | "blob" (opaque state)
 
 
 PREFIX_ROOT = b"root"
@@ -73,6 +76,9 @@ class PagedKVPool:
     quantize; replication ships the int8 bytes and scales verbatim, so a
     promoted replica is bit-identical on the quantized representation.
 
+    Blob store (``n_blobs`` > 0): (n_blobs, blob_words) f32, or int8 with
+    (n_blobs, 1) SCALE_DTYPE scales ``blob_scales`` on an int8 pool.
+
     Prefix cache (``prefix_cache=True``): ``prefix_index`` maps chain key ->
     PrefixPage; ``_slot_prefix`` is the reverse slot -> key map (a slot is
     interned iff present); ``_prefix_children`` maps parent key -> child
@@ -84,9 +90,9 @@ class PagedKVPool:
 
     def __init__(self, n_blocks: int, page_size: int, n_layers: int = 0,
                  n_kv_heads: int = 0, head_dim: int = 0, real: bool = False,
-                 dtype=torch.bfloat16, window: int = 0, device="cuda",
-                 quantized: bool = False, prefix_cache: bool = False,
-                 arch_key: str = ""):
+                 dtype=torch.bfloat16, blob_words: int = 0, n_blobs: int = 0,
+                 window: int = 0, device="cuda", quantized: bool = False,
+                 prefix_cache: bool = False, arch_key: str = ""):
         self.n_blocks = n_blocks
         self.page_size = page_size
         self.real = real
@@ -103,6 +109,13 @@ class PagedKVPool:
         self._tables: Dict[int, List[BlockRef]] = {}      # rid -> blocks
         # replica blocks hosted on behalf of peers: (peer_node, rid) -> slots
         self._replica_tables: Dict[Tuple[int, int], List[BlockRef]] = {}
+        # blob store: one fixed-size opaque state blob per request, with the
+        # same dirty flag and host/promote/evict lifecycle as a KV block
+        self.blob_words = blob_words
+        self.n_blobs = n_blobs
+        self._blob_free: List[int] = list(range(n_blobs))
+        self._blob_refs: Dict[int, BlockRef] = {}          # rid -> blob
+        self._blob_replicas: Dict[Tuple[int, int], BlockRef] = {}
         self.prefix_cache = prefix_cache
         self.arch_key = arch_key
         self.prefix_index: Dict[bytes, PrefixPage] = {}
@@ -116,7 +129,7 @@ class PagedKVPool:
         self.prefix_hosted_pages = 0     # interned via shared replication
         self.prefix_evicted_pages = 0
         self.cow_copies = 0
-        self.k_scale = self.v_scale = None
+        self.k_scale = self.v_scale = self.blob_scales = None
         if real:
             shape = (n_layers, n_kv_heads, n_blocks, page_size, head_dim)
             if quantized:
@@ -127,6 +140,14 @@ class PagedKVPool:
                 self.v_scale = torch.ones_like(self.k_scale)
             self.k = torch.zeros(shape, dtype=dtype, device=device)
             self.v = torch.zeros(shape, dtype=dtype, device=device)
+            if n_blobs:
+                # the f32 carrier round-trips the bf16 conv state losslessly
+                self.blobs = torch.zeros(
+                    (n_blobs, blob_words), device=device,
+                    dtype=torch.int8 if quantized else torch.float32)
+                if quantized:
+                    self.blob_scales = torch.ones(
+                        (n_blobs, 1), dtype=SCALE_DTYPE, device=device)
 
     @property
     def block_nbytes(self) -> int:
@@ -137,6 +158,16 @@ class PagedKVPool:
         tensors = [self.k] + ([self.k_scale] if self.quantized else [])
         return sum(2 * t.numel() // self.n_blocks * t.element_size()
                    for t in tensors)
+
+    @property
+    def blob_nbytes(self) -> int:
+        """Bytes of one blob replication message: f32 words, or int8 words
+        plus one scale on an int8 pool."""
+        if not self.blob_words:
+            return 0
+        if self.quantized:
+            return self.blob_words + SCALE_DTYPE.itemsize
+        return 4 * self.blob_words
 
     # -- capacity ----------------------------------------------------------
     @property
@@ -315,9 +346,49 @@ class PagedKVPool:
         for ref in self._tables.pop(rid, []):
             self._release_slot(ref.slot)
         self.prefix_hits_by_rid.pop(rid, None)
+        blob = self._blob_refs.pop(rid, None)
+        if blob is not None:
+            self._blob_free.append(blob.slot)
 
     def live_requests(self) -> List[int]:
         return list(self._tables)
+
+    # -- blobs (opaque per-request state, e.g. the RG-LRU recurrence) --------
+    def allocate_blob(self, rid: int) -> BlockRef:
+        """One fixed-size blob per request; raises MemoryError when the
+        blob store is full (the caller evicts replicas first)."""
+        assert rid not in self._blob_refs, "rid already owns a blob"
+        if not self._blob_free:
+            raise MemoryError("blob store exhausted")
+        ref = BlockRef(rid, 0, self._blob_free.pop(), kind="blob")
+        self._blob_refs[rid] = ref
+        return ref
+
+    def blob_ref(self, rid: int) -> Optional[BlockRef]:
+        return self._blob_refs.get(rid)
+
+    def mark_blob_dirty(self, rid: int):
+        """Decode mutated this request's recurrent state in place."""
+        ref = self._blob_refs.get(rid)
+        if ref is not None:
+            ref.replicated = False
+
+    def host_blob_replica(self, peer: int, rid: int) -> bool:
+        """Reserve one blob slot for a peer's replicated state. Never
+        raises: False when the blob store is full."""
+        if (peer, rid) in self._blob_replicas:
+            return True
+        if not self._blob_free:
+            return False
+        self._blob_replicas[(peer, rid)] = BlockRef(
+            rid, 0, self._blob_free.pop(), kind="blob")
+        return True
+
+    def blob_replica_ref(self, peer: int, rid: int) -> Optional[BlockRef]:
+        return self._blob_replicas.get((peer, rid))
+
+    def replica_blobs_used(self) -> int:
+        return len(self._blob_replicas)
 
     # -- replica hosting -------------------------------------------------------
     def host_replica(self, peer: int, rid: int, n_blocks: int,
@@ -384,6 +455,9 @@ class PagedKVPool:
     def drop_replica(self, peer: int, rid: int):
         for ref in self._replica_tables.pop((peer, rid), []):
             self._release_slot(ref.slot)
+        blob = self._blob_replicas.pop((peer, rid), None)
+        if blob is not None:
+            self._blob_free.append(blob.slot)
 
     def evict_replicas_for_pressure(self, blocks_needed: int) -> int:
         """Paper: 'When memory pressure happens, KevlarFlow drops the
@@ -398,13 +472,29 @@ class PagedKVPool:
             freed += n
         return freed
 
+    def evict_blob_replicas_for_pressure(self) -> int:
+        """Blob-store pressure: drop hosted replica tables (KV and blob
+        together — a partial replica cannot be resumed from) until a blob
+        slot frees up. Returns the replica tables dropped."""
+        dropped = 0
+        for key in list(self._blob_replicas):
+            if self._blob_free:
+                break
+            self.drop_replica(*key)
+            dropped += 1
+        return dropped
+
     def promote_replica(self, peer: int, rid: int) -> List[BlockRef]:
         """Failure path: the replicated request resumes *here* — the hosted
         replica blocks become this pool's primary blocks for rid, keeping
-        their absolute logical page indices."""
+        their absolute logical page indices. A hosted state blob (hybrid
+        family) is promoted alongside the KV blocks."""
         refs = self._replica_tables.pop((peer, rid), [])
         assert rid not in self._tables, "rid already live on this node"
         self._tables[rid] = refs
+        blob = self._blob_replicas.pop((peer, rid), None)
+        if blob is not None:
+            self._blob_refs[rid] = blob
         return refs
 
     # -- prefix cache (content-addressed immutable prompt pages) -------------
@@ -672,3 +762,46 @@ class PagedKVPool:
         for name in names:
             getattr(other, name).index_copy_(
                 2, dst, getattr(self, name).index_select(2, src))
+
+    # -- real-buffer blob IO -------------------------------------------------
+    def write_blob(self, slot: int, vec):
+        """vec: (blob_words,) f32 — quantized to int8 + one per-blob scale
+        on an int8 pool."""
+        assert self.real and self.n_blobs
+        if self.quantized:
+            q, s = quantize_pages(vec[None])
+            self.blobs[slot] = q[0]
+            self.blob_scales[slot] = s[0]
+            return
+        self.blobs[slot] = vec.float()
+
+    def read_blob(self, slot: int):
+        """(blob_words,) f32 state — dequantized on an int8 pool
+        (``read_blob_quantized`` gives the raw payload)."""
+        assert self.real and self.n_blobs
+        if self.quantized:
+            return dequantize_pages(self.blobs[slot], self.blob_scales[slot])
+        return self.blobs[slot]
+
+    def read_blob_quantized(self, slot: int):
+        """Raw quantized blob payload: (int8 (blob_words,), scale (1,))."""
+        assert self.real and self.n_blobs and self.quantized
+        return self.blobs[slot], self.blob_scales[slot]
+
+    def copy_blobs_to(self, other: "PagedKVPool", src_slots: List[int],
+                      dst_slots: List[int]):
+        """Blob replication, batched: one gather + one in-place scatter per
+        buffer on the current stream; an int8 pool ships its payload and
+        scales verbatim."""
+        if not (self.real and other.real) or not src_slots:
+            return
+        assert self.quantized == other.quantized, \
+            "replication peers must agree on KV quantization"
+        src = torch.as_tensor(src_slots, dtype=torch.long,
+                              device=self.blobs.device)
+        dst = torch.as_tensor(dst_slots, dtype=torch.long,
+                              device=other.blobs.device)
+        names = ("blobs", "blob_scales") if self.quantized else ("blobs",)
+        for name in names:
+            getattr(other, name).index_copy_(
+                0, dst, getattr(self, name).index_select(0, src))

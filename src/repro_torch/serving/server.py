@@ -11,7 +11,10 @@ versioned fault-injection admin API (``POST /v1/admin/fault`` /
 The model runs at the config's full size on the card (``--device cuda``,
 the default); ``--device cpu --reduced`` serves the reduced config on the
 CPU; ``--arch`` picks any config the port serves (the dense family,
-``mixtral-8x7b``, ``dbrx-132b``) and ``--layers N`` serves its first N
+``mixtral-8x7b``, ``dbrx-132b``, and the hybrid ``recurrentgemma-9b``,
+whose RG-LRU state blobs replicate beside its KV blocks: ``/health``
+counts them under ``replication.blobs_total`` and
+``disagg.handoff_blobs_total``) and ``--layers N`` serves its first N
 layers at full width, for a model deeper than one card holds. ``--kv-quant``
 serves from an int8 KV pool and ``--prefill-chunk N``
 runs prompts in chunks of N tokens interleaved with decode steps.
@@ -354,7 +357,8 @@ def main():
     ap.add_argument("--device", default="cuda",
                     help="torch device the model and KV pools live on")
     ap.add_argument("--reduced", action="store_true",
-                    help="serve the config's reduced variant (2 layers, "
+                    help="serve the config's reduced variant (2 layers, 3 "
+                         "for the hybrid pattern, "
                          "d_model 256) — the size the CPU can run")
     ap.add_argument("--layers", type=int, default=0,
                     help="serve only the first N layers, at full width "

@@ -1,10 +1,11 @@
-"""Staged block transport between instance pools.
+"""Staged block/blob transport between instance pools.
 
 One channel carries BOTH inter-instance byte streams the engine owns —
 ring KV replication (``"repl"``) and the prefill→decode handoff stream
 (``"handoff"``, ``EngineConfig.disaggregate``) — because they are the same
-wire format: paged KV blocks (int8 payload + scales on a quantized pool),
-addressed by pool slot. The channel is an async double buffer:
+wire format: paged KV blocks (int8 payload + scales on a quantized pool)
+and the hybrid family's RG-LRU state blobs, addressed by pool slot. The
+channel is an async double buffer:
 
   * ``stage`` records a copy job (metadata only — slot id lists) tagged
     with its kind at the end of step N;
@@ -45,20 +46,24 @@ class Tally:
     """Byte/message accounting for one (kind, outcome) bucket."""
     msgs: int = 0
     blocks: int = 0
+    blobs: int = 0
     bytes: int = 0
     shared_copies: int = 0
 
     def add(self, msg: dict):
         self.msgs += 1
         self.blocks += len(msg["blocks"][0])
+        self.blobs += len(msg["blobs"][0])
         self.bytes += msg["nbytes"]
         self.shared_copies += msg["shared_copies"]
 
 
 @dataclasses.dataclass
 class Growth:
-    """Result of one all-or-nothing ``host_table_growth`` call; carries
-    enough to undo itself."""
+    """Result of one all-or-nothing ``host_table_growth`` call. Carries
+    enough to undo itself: the caller rolls back when a LATER hosting step
+    of the same request fails (no blob headroom on a hybrid), so staging
+    stays all-or-nothing per request."""
     copies: List[tuple]            # (src_slot, dst_slot) shared pages to ship
     shared_keys: List[bytes]       # chain key per shared-page hosting
     n_hosted: int = 0              # blocks this call appended to the table
@@ -79,7 +84,7 @@ class Growth:
 
 
 class TransportChannel:
-    """Double-buffered block transport over a live instance list.
+    """Double-buffered block/blob transport over a live instance list.
 
     ``instances`` is the engine's OWN list (not a copy): a rejoin that
     replaces an instance object is visible to the next flush, and a dead
@@ -101,15 +106,18 @@ class TransportChannel:
         self.shipped_degraded: Dict[str, Tally] = {k: Tally() for k in KINDS}
 
     def stage(self, kind: str, src_id: int, dst_id: int, blocks,
+              blobs=((), ()),
               shared_copies: int = 0, on_shipped=None) -> dict:
-        """Queue one copy job: ``blocks`` is a (src_slots, dst_slots) pair
-        addressing the source / target pools. ``on_shipped`` (if given)
+        """Queue one copy job: ``blocks`` and ``blobs`` are (src_slots,
+        dst_slots) pairs addressing the source / target pools' blocks and
+        blobs. ``on_shipped`` (if given)
         fires when the job's bytes land — never when the job is dropped
         for a dead target."""
         src_pool = self.instances[src_id].pool
-        msg = {"src": src_id, "dst": dst_id, "blocks": blocks, "kind": kind,
-               "shared_copies": shared_copies,
-               "nbytes": len(blocks[0]) * src_pool.block_nbytes,
+        msg = {"src": src_id, "dst": dst_id, "blocks": blocks,
+               "blobs": blobs, "kind": kind, "shared_copies": shared_copies,
+               "nbytes": len(blocks[0]) * src_pool.block_nbytes
+               + len(blobs[0]) * src_pool.blob_nbytes,
                "on_shipped": on_shipped}
         self.pending.append(msg)
         self.staged[kind].add(msg)
@@ -132,6 +140,7 @@ class TransportChannel:
                 continue
             src = self.instances[msg["src"]]
             src.pool.copy_blocks_to(dst.pool, *msg["blocks"])
+            src.pool.copy_blobs_to(dst.pool, *msg["blobs"])
             self.shipped[msg["kind"]].add(msg)
             if self.view is not None and self.view.is_degraded(msg["dst"]):
                 self.shipped_degraded[msg["kind"]].add(msg)

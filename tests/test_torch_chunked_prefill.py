@@ -6,7 +6,10 @@ invariants (tests/test_chunked_prefill.py): chunked prefill is a pure
 scheduling change — the carry buffers, the logits, the pool's prompt pages
 (raw int8 payload and scales on an int8 pool) and every sampled token equal
 monolithic prefill's bit for bit — and a mid-chunk instance kill restarts
-the mid-prefill victim while the decoding victim migrates."""
+the mid-prefill victim while the decoding victim migrates. The hybrid
+family carries its RG-LRU state across chunks too (and its blob); its
+float32 chunks round the carried conv rows to bf16, as the reference's do,
+so there it is allclose rather than bit for bit."""
 import dataclasses
 
 import numpy as np
@@ -47,7 +50,18 @@ def _chunks(n, C, toks):
         yield c0, min(C, n - c0), toks[:, c0:c0 + C]
 
 
-ARCHS = ["llama3-8b", "mixtral-8x7b"]
+ARCHS = ["llama3-8b", "mixtral-8x7b", "recurrentgemma-9b"]
+
+
+def _chunk(mod, cfg, params, tc, c0, take, kb, vb, st):
+    """One chunk through ``mod`` (either package's paged_decode): the
+    hybrid's carries its RG-LRU states. Returns (logits, kb, vb, states,
+    blob); states and blob None off the hybrid."""
+    if cfg.arch_type == "hybrid":
+        return mod.prefill_hybrid_chunk(cfg, params, tc, c0, take, kb, vb,
+                                        st)
+    return (*mod.prefill_chunk(cfg, params, tc, c0, take, kb, vb), None,
+            None)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -55,8 +69,9 @@ def test_prefill_chunk_matches_reference(arch):
     """Chunks of 8 over a 27-token prompt (3 full + a ragged 3), float32 on
     converted weights: the carry buffers and each chunk's logits agree with
     the reference's within 1e-4 (f32 on both sides, different summation
-    orders), and the buffers have the reference's shape and dtype; dense
-    and MoE."""
+    orders), and the buffers have the reference's shape and dtype; dense,
+    MoE and hybrid (whose carried blob, bf16 conv rows in f32 words,
+    agrees within bf16 rounding)."""
     jcfg = dataclasses.replace(jax_config(arch).reduced(), **F32)
     cfg = dataclasses.replace(get_config(arch).reduced(), **F32)
     jp = api.init_params(jcfg, jax.random.PRNGKey(0))
@@ -69,15 +84,21 @@ def test_prefill_chunk_matches_reference(arch):
     jkb, jvb = JPD.init_chunk_buffers(jcfg, bucket)
     assert tuple(kb.shape) == jkb.shape and kb.dtype == torch.float32
     assert not kb.any() and not vb.any()
+    hybrid = cfg.arch_type == "hybrid"
+    st = PD.init_hybrid_chunk_state(cfg, device="cpu") if hybrid else None
+    jst = JPD.init_hybrid_chunk_state(jcfg) if hybrid else None
     for c0, take, tc in _chunks(n, C, toks):
-        logits, kb, vb = PD.prefill_chunk(cfg, tp, torch.from_numpy(tc), c0,
-                                          take, kb, vb)
-        jl, jkb, jvb = JPD.prefill_chunk(jcfg, jp, jnp.asarray(tc),
-                                         jnp.int32(c0), jnp.int32(take),
-                                         jkb, jvb)
+        logits, kb, vb, st, blob = _chunk(PD, cfg, tp, torch.from_numpy(tc),
+                                          c0, take, kb, vb, st)
+        jl, jkb, jvb, jst, jblob = _chunk(JPD, jcfg, jp, jnp.asarray(tc),
+                                          jnp.int32(c0), jnp.int32(take),
+                                          jkb, jvb, jst)
         assert logits.shape == (1, cfg.vocab_size)
         np.testing.assert_allclose(logits.numpy(), np.asarray(jl),
                                    rtol=1e-4, atol=1e-4)
+        if hybrid:
+            np.testing.assert_allclose(blob.numpy(), np.asarray(jblob),
+                                       rtol=1e-2, atol=1e-2)
     for got, want in ((kb, jkb), (vb, jvb)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    rtol=1e-4, atol=1e-4)
@@ -88,8 +109,9 @@ def test_prefill_chunk_matches_reference(arch):
 def test_chunk_prefill_matches_monolithic(dtype, arch):
     """Model level, torch against torch: chunks of 8 (a ragged final chunk
     included) reproduce the monolithic prefill's KV rows in the pool's
-    storage dtype and its last-position logits, bit for bit (dense and
-    routed MoE)."""
+    storage dtype and its last-position logits, bit for bit (dense, routed
+    MoE, and the hybrid in bf16 with its state blob; the hybrid's float32
+    chunks carry bf16-rounded conv rows, so there they are allclose)."""
     cfg = dataclasses.replace(get_config(arch).reduced(), dtype=dtype,
                               kv_dtype=dtype)
     params = tapi.init_params(cfg, torch.Generator().manual_seed(0),
@@ -98,15 +120,27 @@ def test_chunk_prefill_matches_monolithic(dtype, arch):
     bucket = PD.next_bucket(n, lo=cfg.page_size)
     toks = np.zeros((1, bucket), np.int32)
     toks[0, :n] = np.random.default_rng(0).integers(1, cfg.vocab_size, n)
-    lm, km, vm = PD.prefill_bucketed(cfg, params, torch.from_numpy(toks), n)
+    hybrid = cfg.arch_type == "hybrid"
+    t = torch.from_numpy(toks)
+    if hybrid:
+        lm, km, vm, bm = PD.prefill_hybrid_bucketed(cfg, params, t, n)
+    else:
+        lm, km, vm = PD.prefill_bucketed(cfg, params, t, n)
     kb, vb = PD.init_chunk_buffers(cfg, bucket, device="cpu")
+    st = PD.init_hybrid_chunk_state(cfg, device="cpu") if hybrid else None
     for c0, take, tc in _chunks(n, C, toks):
-        logits, kb, vb = PD.prefill_chunk(cfg, params, torch.from_numpy(tc),
-                                          c0, take, kb, vb)
+        logits, kb, vb, st, blob = _chunk(PD, cfg, params,
+                                          torch.from_numpy(tc), c0, take,
+                                          kb, vb, st)
     kv_dt = PD.kv_dtype(cfg)
-    for mono, chunked in ((km, kb), (vm, vb)):
-        assert torch.equal(mono[:, :n], chunked[:, :n].to(kv_dt))
-    assert torch.equal(logits, lm)
+    pairs = [(km[:, :n], kb[:, :n].to(kv_dt)),
+             (vm[:, :n], vb[:, :n].to(kv_dt)),
+             (lm, logits)] + ([(bm, blob)] if hybrid else [])
+    for mono, chunked in pairs:
+        if hybrid and dtype == "float32":
+            torch.testing.assert_close(chunked, mono, rtol=0, atol=2e-2)
+        else:
+            assert torch.equal(mono, chunked)
 
 
 def _engine_run(cfg, chunk, kv_quant, lens=(27, 27), out=6):

@@ -3,8 +3,9 @@ included), ``n_params``, ``n_active_params`` and ``reduced()`` of every
 registered config; the input shapes and their policy for every registered
 config; and, on converted float32 weights, the engine's greedy streams on
 the reduced yi-9b (GQA rep 2), qwen1.5-0.5b (QKV bias, MHA) and
-qwen1.5-32b (on the int8 pool), with monolithic and chunked prefill (the
-MoE configs' engine streams are tests/test_torch_engine.py's)."""
+qwen1.5-32b (on the int8 pool) and the hybrid recurrentgemma-9b, with
+monolithic and chunked prefill (the MoE configs' engine streams are
+tests/test_torch_engine.py's)."""
 import dataclasses
 
 import numpy as np
@@ -26,18 +27,22 @@ from repro_torch.serving.request import Request  # noqa: E402
 
 NEW = ["yi-9b", "qwen1.5-0.5b", "qwen1.5-32b", "deepseek-67b"]
 MOE = ["mixtral-8x7b", "dbrx-132b"]
+HYBRID = ["recurrentgemma-9b"]
 F32 = dict(dtype="float32", kv_dtype="float32")
 
 
 def test_registry_holds_the_dense_family_and_mamba2():
     assert TC.list_configs() == sorted(
-        NEW + MOE + ["llama3-8b", "mamba2-130m"])
+        NEW + MOE + HYBRID + ["llama3-8b", "mamba2-130m"])
     assert set(TC.list_configs()) <= set(JC.list_configs())
-    with pytest.raises(KeyError, match="unknown arch"):
-        TC.get_config("recurrentgemma-9b")     # comes with the hybrid family
+    # the reference's other configs come with their families
+    for name in set(JC.list_configs()) - set(TC.list_configs()):
+        with pytest.raises(KeyError, match="unknown arch"):
+            TC.get_config(name)
 
 
-@pytest.mark.parametrize("name", NEW + MOE + ["llama3-8b", "mamba2-130m"])
+@pytest.mark.parametrize("name", NEW + MOE + ["llama3-8b", "mamba2-130m"]
+                         + HYBRID)
 def test_config_equals_reference_field_for_field(name):
     t, j = TC.get_config(name), JC.get_config(name)
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
@@ -75,7 +80,7 @@ def _to_jax(params):
 
 
 CASES = [("yi-9b", {}), ("qwen1.5-0.5b", {}),
-         ("qwen1.5-32b", dict(kv_quant=True))]
+         ("qwen1.5-32b", dict(kv_quant=True)), ("recurrentgemma-9b", {})]
 
 
 @pytest.mark.parametrize("chunk", [0, 8])

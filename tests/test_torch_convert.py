@@ -22,15 +22,20 @@ def _leaves(tree, prefix=()):
     if isinstance(tree, dict):
         for k, v in tree.items():
             yield from _leaves(v, prefix + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, prefix + (i,))
     else:
         yield prefix, tree
 
 
-@pytest.mark.parametrize("name", ["llama3-8b", "mixtral-8x7b", "dbrx-132b"])
+@pytest.mark.parametrize("name", ["llama3-8b", "mixtral-8x7b", "dbrx-132b",
+                                  "recurrentgemma-9b"])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_conversion_is_bit_exact(dtype, name):
     """Every leaf bit for bit in the config's dtype; the MoE tree's f32
-    router and (L, E, d, f) expert stacks too."""
+    router and (L, E, d, f) expert stacks, and the hybrid's list of
+    per-layer dicts (its f32 lambda_p among them) too."""
     jcfg = dataclasses.replace(jax_config(name).reduced(), dtype=dtype)
     jparams = api.init_params(jcfg, jax.random.PRNGKey(0))
     tparams = from_jax_numpy(jax.tree_util.tree_map(np.asarray, jparams),
@@ -40,7 +45,8 @@ def test_conversion_is_bit_exact(dtype, name):
     assert jl.keys() == tl.keys()
     for path, jv in jl.items():
         tv = tl[path]
-        leaf_dtype = "float32" if path[-1] == "router" else dtype
+        leaf_dtype = "float32" if path[-1] in ("router", "lambda_p") \
+            else dtype
         assert tv.dtype == getattr(torch, leaf_dtype), path
         assert tuple(tv.shape) == tuple(jv.shape), path
         want = np.asarray(jv)
@@ -75,3 +81,28 @@ def test_layer_stacked_layout_matches_port_init():
     assert abs(float(wq.std()) - cfg.d_model ** -0.5) < 5e-3
     assert torch.equal(own["layers"]["norm_attn"],
                        torch.ones_like(own["layers"]["norm_attn"]))
+
+
+def test_lists_and_tuples_keep_order_and_type():
+    """The reference hybrid's tree: ``params["layers"]`` is a LIST of
+    per-layer dicts of two kinds (rglru, rglru, attn). The converted tree
+    is a list in the same order — each layer's keys are its kind's — and a
+    tuple stays a tuple."""
+    jcfg = jax_config("recurrentgemma-9b").reduced()
+    jp = jax.tree_util.tree_map(np.asarray,
+                                api.init_params(jcfg, jax.random.PRNGKey(2)))
+    tp = from_jax_numpy(jp, device="cpu")
+    assert isinstance(tp["layers"], list)
+    assert len(tp["layers"]) == len(jp["layers"]) == 3
+    for jl, tl, kind in zip(jp["layers"], tp["layers"], jcfg.layer_kinds()):
+        assert tl.keys() == jl.keys()
+        assert ("wa" in tl) == (kind == "rglru")
+        bits = tl["norm_t"].view(torch.int16).numpy()
+        assert np.array_equal(bits, jl["norm_t"].view(np.int16))
+    wa = [layer["wa"] for layer in tp["layers"][:2]]
+    assert not torch.equal(wa[0], wa[1])       # each layer its own matrix
+    pair = from_jax_numpy((np.arange(3, dtype=np.float32),
+                           [np.ones(2, np.int32)]), device="cpu")
+    assert isinstance(pair, tuple) and isinstance(pair[1], list)
+    assert pair[0].tolist() == [0.0, 1.0, 2.0]
+    assert pair[1][0].dtype == torch.int32

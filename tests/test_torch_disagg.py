@@ -48,7 +48,9 @@ def _engine(kv_quant=False, n_instances=2, arch="llama3-8b", **kw):
 # -- the port against the reference engine -------------------------------------
 
 PARITY = {"disagg": dict(),
-          "disagg_prefix_int8": dict(prefix_cache=True, kv_quant=True)}
+          "disagg_prefix_int8": dict(prefix_cache=True, kv_quant=True),
+          # the hybrid: each handoff carries the request's state blob
+          "hybrid_disagg": dict(arch="recurrentgemma-9b")}
 
 
 def _parity_prompts(vocab):
@@ -76,15 +78,17 @@ def _serve_parity(eng, cls, prompts):
 
 @pytest.fixture(scope="module", params=sorted(PARITY))
 def reference_run(request):
-    """One reference run per case (float32 reduced llama3-8b, 2 instances,
-    replication on, chunks of 8)."""
-    jcfg = dataclasses.replace(jax_config("llama3-8b").reduced(), **F32)
+    """One reference run per case (float32 reduced llama3-8b unless the
+    case names its arch, 2 instances, replication on, chunks of 8)."""
+    kw = dict(PARITY[request.param])
+    arch = kw.pop("arch", "llama3-8b")
+    jcfg = dataclasses.replace(jax_config(arch).reduced(), **F32)
     ecfg = dict(max_slots=4, max_seq=64, prefill_chunk=8, disaggregate=True,
-                **PARITY[request.param])
+                **kw)
     jeng = JRealEngine(jcfg, JEngineConfig(**ecfg), n_instances=2, seed=0)
     prompts = _parity_prompts(jcfg.vocab_size)
     streams = _serve_parity(jeng, JRequest, prompts)
-    return dict(ecfg=ecfg, prompts=prompts, streams=streams,
+    return dict(arch=arch, ecfg=ecfg, prompts=prompts, streams=streams,
                 prefix=jeng.prefix_stats(), disagg=jeng.disagg_stats(),
                 keys=[sorted(i.pool.prefix_index) for i in jeng.instances],
                 params=jax.tree_util.tree_map(np.asarray, jeng.params))
@@ -95,7 +99,7 @@ def test_disaggregation_matches_reference_engine(reference_run):
     disagg_stats / prefix_stats key and the interned chain keys equal the
     reference engine's."""
     ref = reference_run
-    cfg = dataclasses.replace(get_config("llama3-8b").reduced(), **F32)
+    cfg = dataclasses.replace(get_config(ref["arch"]).reduced(), **F32)
     teng = RealEngine(cfg, EngineConfig(**ref["ecfg"]), n_instances=2,
                       device="cpu",
                       params=from_jax_numpy(ref["params"], device="cpu"))
@@ -107,12 +111,16 @@ def test_disaggregation_matches_reference_engine(reference_run):
     assert [sorted(i.pool.prefix_index) for i in teng.instances] == \
         ref["keys"]
     assert teng.disagg_stats()["handoffs_seated"] == len(ref["prompts"])
+    if cfg.arch_type == "hybrid":
+        assert teng.disagg_stats()["handoff_blobs_total"] == \
+            len(ref["prompts"])
 
 
 # -- torch against torch ---------------------------------------------------------
 
 def _capture_pages(eng, req, kv_quant):
-    """Prompt-row page bytes for ``req`` from whichever pool holds it."""
+    """Prompt-row page bytes for ``req`` from whichever pool holds it (and,
+    on the hybrid, its state blob under the key "blob")."""
     for inst in eng.instances:
         if not inst.alive or req.rid not in inst.pool.live_requests():
             continue
@@ -125,6 +133,11 @@ def _capture_pages(eng, req, kv_quant):
             raw = (inst.pool.read_block_quantized(ref.slot)
                    if kv_quant else inst.pool.read_block(ref.slot))
             pages[ref.logical_idx] = [a[:, :, :valid].clone() for a in raw]
+        bref = inst.pool.blob_ref(req.rid)
+        if bref is not None:
+            pages["blob"] = [a.clone() for a in (
+                inst.pool.read_blob_quantized(bref.slot) if kv_quant
+                else (inst.pool.read_blob(bref.slot),))]
         return inst.instance_id, pages
     return None, None
 
@@ -151,19 +164,23 @@ def _run(kv_quant, disagg, lens=(27, 8, 27), out=6, capture_rid=0,
     return eng, reqs, seated_on, pages
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "mixtral-8x7b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "mixtral-8x7b",
+                                  "recurrentgemma-9b"])
 @pytest.mark.parametrize("kv_quant", [False, True])
 def test_disagg_byte_identical_to_colocated(kv_quant, arch):
     """Disaggregated serving emits the exact token streams of colocated
     serving, and the prompt pages the decode instance received over the
     wire are byte-identical to the pages colocated prefill writes locally
-    (raw int8 payload + scales on the int8 pool); dense and MoE."""
+    (raw int8 payload + scales on the int8 pool); dense, MoE and hybrid
+    (whose handed-off state blob is the colocated one too, one blob per
+    handoff)."""
     _, colo, _, colo_pages = _run(kv_quant, disagg=False, arch=arch)
     eng, dis, seated_on, dis_pages = _run(kv_quant, disagg=True, arch=arch)
     assert [r.output_tokens for r in dis] == \
         [r.output_tokens for r in colo]
     assert all(len(r.output_tokens) == 6 for r in dis)
-    assert set(dis_pages) == set(colo_pages) == {0, 1, 2, 3}
+    blob = {"blob"} if arch == "recurrentgemma-9b" else set()
+    assert set(dis_pages) == set(colo_pages) == {0, 1, 2, 3} | blob
     for logical in colo_pages:
         for a, b in zip(colo_pages[logical], dis_pages[logical]):
             assert torch.equal(a, b)
@@ -172,6 +189,8 @@ def test_disagg_byte_identical_to_colocated(kv_quant, arch):
     assert seated_on == 1 and eng.roles[1] == "decode"
     assert eng.handoffs_seated == len(dis)
     assert eng.disagg_stats()["handoff_blocks_total"] > 0
+    assert eng.disagg_stats()["handoff_blobs_total"] == \
+        (eng.handoffs_seated if blob else 0)
 
 
 def test_roles_routing_and_stats():
@@ -244,11 +263,13 @@ def test_prefix_handoff_interns_instead_of_copies():
         assert len(inst.pool.prefix_index) == 3
 
 
-def _chaos_run(kv_quant, kill, n_instances=2, lens=(27, 27, 8), out=8):
+def _chaos_run(kv_quant, kill, n_instances=2, lens=(27, 27, 8), out=8,
+               arch="llama3-8b"):
     """Serve with a mid-flight kill: ``kill='prefill'`` fails the streaming
     source once pages have shipped; ``kill='decode'`` fails the handoff
     target before any seat."""
-    eng = _engine(kv_quant, n_instances=n_instances, disaggregate=True)
+    eng = _engine(kv_quant, n_instances=n_instances, disaggregate=True,
+                  arch=arch)
     reqs = _mk_reqs(eng.cfg, lens, out)
     for r in reqs:
         eng.submit(r)
@@ -293,6 +314,25 @@ def test_disagg_prefill_kill_chaos_drill(kv_quant):
         assert any(r.n_retries == 0 and r.n_migrations > 0 for r in failed)
     assert not eng._handoffs
     # with the prefill role gone, the survivor serves colocated
+    assert all(r.instance_id == 1 for r in failed)
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_hybrid_disagg_prefill_kill_restarts_without_resume(kv_quant):
+    """The hybrid (the reference's tests/test_disagg.py hybrid case): the
+    RG-LRU state spans every streamed page, so a prefill instance killed
+    mid-stream never resumes from the streamed pages — the request
+    restarts from scratch — and every stream still equals the failure-free
+    run's."""
+    arch = "recurrentgemma-9b"
+    _, normal, _, _ = _run(kv_quant, disagg=True, lens=(27, 27, 8), out=8,
+                           arch=arch)
+    eng, failed = _chaos_run(kv_quant, kill="prefill", arch=arch)
+    assert [r.output_tokens for r in failed] == \
+        [r.output_tokens for r in normal]
+    assert eng.handoff_streams_resumed == 0
+    assert any(r.n_retries for r in failed)
+    assert not eng._handoffs
     assert all(r.instance_id == 1 for r in failed)
 
 

@@ -56,12 +56,15 @@ def _engine(cfg, n_instances=2, **kw):
                       seed=0, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "mixtral-8x7b"])
+ARCHS = ["llama3-8b", "mixtral-8x7b", "recurrentgemma-9b"]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
 def test_token_streams_match_reference_engine(arch):
     """Slice-level parity: the same 4 prompts x 16 greedy tokens through
     the reference RealEngine and the port's, on the same weights, give
-    identical token streams (float32 isolates the algorithm), dense and
-    MoE."""
+    identical token streams (float32 isolates the algorithm), dense, MoE
+    and hybrid."""
     cfg = _cfg(arch)
     jcfg = dataclasses.replace(jax_config(arch).reduced(), **F32)
     max_seq, n_new = 64, 16
@@ -86,14 +89,15 @@ def test_token_streams_match_reference_engine(arch):
         assert got == want, f"request {i}: port != reference"
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "mixtral-8x7b"])
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("repl_async", [True, False])
 def test_failover_byte_identical_from_promoted_blocks(arch, repl_async):
     """Kill the busy instance mid-decode: every victim resumes on the ring
-    target from PROMOTED replica blocks whose bytes equal the dead
-    primary's last replicated state, and every token stream equals the
-    failure-free run's — with copies shipped a step later (async) or in
-    the step that staged them; dense and MoE."""
+    target from PROMOTED replica blocks (and, on the hybrid, the promoted
+    state blob) whose bytes equal the dead primary's last replicated
+    state, and every token stream equals the failure-free run's — with
+    copies shipped a step later (async) or in the step that staged them;
+    dense, MoE and hybrid."""
     cfg = _cfg(arch)
 
     def run(fail: bool):
@@ -114,6 +118,8 @@ def test_failover_byte_identical_from_promoted_blocks(arch, repl_async):
                             src.pool.v[:, :, [r.slot for r in
                                               src.pool.table(rid)]].clone())
                       for rid in victims}
+            blobs = {rid: src.pool.blobs[src.pool.blob_ref(rid).slot].clone()
+                     for rid in victims} if cfg.arch_type == "hybrid" else {}
             resumed = eng.fail_instance(0)
             assert set(resumed) == set(victims)
             for rid in victims:
@@ -121,6 +127,11 @@ def test_failover_byte_identical_from_promoted_blocks(arch, repl_async):
                 slots = [r.slot for r in tgt.pool.table(rid)]
                 assert torch.equal(tgt.pool.k[:, :, slots], frozen[rid][0])
                 assert torch.equal(tgt.pool.v[:, :, slots], frozen[rid][1])
+                if blobs:       # the blob is the dead primary's, bit for bit
+                    assert tgt.pool.blob_replica_ref(0, rid) is None
+                    got = tgt.pool.blobs[tgt.pool.blob_ref(rid).slot]
+                    assert got.view(torch.int32).tolist() == \
+                        blobs[rid].view(torch.int32).tolist()
                 assert tgt.requests[rid].n_migrations == 1
         eng.run(2000)
         return reqs
@@ -150,6 +161,37 @@ def test_delta_replication_ships_at_most_one_block_per_request_step(cfg):
     assert stats["blocks_per_request_step"] <= 1.5
     assert stats["bytes_total"] == \
         stats["blocks_total"] * eng.instances[0].pool.block_nbytes
+
+
+def test_hybrid_replication_ships_one_block_and_one_blob_per_request_step():
+    """Hybrid: each steady decode step dirties one KV page row and the
+    whole recurrent state, so delta replication ships at most one block
+    and exactly one blob per active request (the reference's
+    tests/test_engine.py hybrid accounting), and the bytes are blocks and
+    blobs times their sizes."""
+    cfg = _cfg("recurrentgemma-9b")
+    eng = _engine(cfg, max_slots=4)
+    for r in _reqs(cfg, 6, prompt=20, out=30):
+        eng.submit(r)
+    for _ in range(4):                       # admit + initial prompt copy
+        eng.step()
+    for _ in range(5):                       # steady-state decode
+        n_active = sum(len(i.requests) for i in eng.instances)
+        blocks, blobs = eng.repl_blocks_total, eng.repl_blobs_total
+        eng.step()
+        assert 0 <= eng.repl_blocks_total - blocks <= n_active
+        assert eng.repl_blobs_total - blobs == n_active
+    stats = eng.replication_stats()
+    pool = eng.instances[0].pool
+    # blocks: the prompt pages' first copy adds to the steady one a step
+    assert stats["blocks_per_request_step"] <= 1.5
+    assert 0.5 < stats["blobs_per_request_step"] <= 1.0
+    assert stats["bytes_total"] == stats["blocks_total"] * pool.block_nbytes \
+        + stats["blobs_total"] * pool.blob_nbytes
+    # one KV block: the attention layer's K and V rows of a page; one blob:
+    # both RG-LRU layers' h and conv state in f32
+    assert pool.block_nbytes == 2 * 1 * 1 * 8 * 64 * 4
+    assert pool.blob_nbytes == 4 * 2 * (256 + 3 * 256)
 
 
 def test_full_replication_mode_scales_with_cache(cfg):
@@ -274,7 +316,8 @@ def test_unported_knobs_raise(cfg):
 @pytest.mark.parametrize("arch,window,n_new,kill_at", [
     ("llama3-8b", 24, 40, 20),
     ("mixtral-8x7b", 24, 40, 20),
-    ("mixtral-8x7b", 64, 80, 62)])       # mixtral's own reduced window
+    ("mixtral-8x7b", 64, 80, 62),        # mixtral's own reduced window
+    ("recurrentgemma-9b", 64, 80, 62)])  # the hybrid's local attention
 def test_windowed_serving_matches_reference_and_fails_over(arch, window,
                                                            n_new, kill_at):
     """Sliding-window serving past the window (page recycling, window-

@@ -32,10 +32,10 @@ def _ids(kw):
     return "+".join(f"{k}={v}" for k, v in kw.items())
 
 
-# every knob on the dense config, both on the MoE one
+# every knob on the dense config, both on the MoE and the hybrid ones
 CASES = [pytest.param("llama3-8b", kw, id=_ids(kw)) for kw in KNOBS] + [
-    pytest.param("mixtral-8x7b", KNOBS[2], id="mixtral-8x7b+" + _ids(
-        KNOBS[2]))]
+    pytest.param(arch, KNOBS[2], id=f"{arch}+" + _ids(KNOBS[2]))
+    for arch in ("mixtral-8x7b", "recurrentgemma-9b")]
 
 
 def _reqs(cfg, lens, out, seed=0, cls=Request):
@@ -98,12 +98,15 @@ def test_knobs_serve_on_cpu(knobs):
 
 @pytest.mark.parametrize("arch,chunk", [
     pytest.param("llama3-8b", 0, id="0"), pytest.param("llama3-8b", 8, id="8"),
-    pytest.param("mixtral-8x7b", 8, id="mixtral-8x7b-8")])
+    pytest.param("mixtral-8x7b", 8, id="mixtral-8x7b-8"),
+    pytest.param("recurrentgemma-9b", 8, id="recurrentgemma-9b-8")])
 def test_int8_failover_byte_identical_from_promoted_blocks(arch, chunk):
     """Kill the busy instance mid-decode on an int8 pool: every victim
     resumes on the ring target from PROMOTED replica blocks whose int8
-    payload AND scales equal the dead primary's, and every token stream
-    equals the failure-free run's (dense, and MoE with chunks)."""
+    payload AND scales equal the dead primary's (and, on the hybrid, a
+    promoted int8 state blob and its scale equal to the dead primary's),
+    and every token stream equals the failure-free run's (dense, and MoE
+    and hybrid with chunks)."""
     cfg = dataclasses.replace(get_config(arch).reduced(), **F32)
 
     def run(fail: bool):
@@ -124,6 +127,10 @@ def test_int8_failover_byte_identical_from_promoted_blocks(arch, chunk):
             frozen = {rid: [getattr(src.pool, n)[
                 :, :, [r.slot for r in src.pool.table(rid)]].clone()
                 for n in names] for rid in victims}
+            hybrid = cfg.arch_type == "hybrid"
+            blobs = {rid: [t[src.pool.blob_ref(rid).slot].clone() for t in
+                           (src.pool.blobs, src.pool.blob_scales)]
+                     for rid in victims} if hybrid else {}
             resumed = eng.fail_instance(0)
             assert set(resumed) == set(victims)
             for rid in victims:
@@ -132,6 +139,12 @@ def test_int8_failover_byte_identical_from_promoted_blocks(arch, chunk):
                 for n, want in zip(names, frozen[rid]):
                     assert torch.equal(getattr(tgt.pool, n)[:, :, slots],
                                        want), n
+                if hybrid:
+                    slot = tgt.pool.blob_ref(rid).slot
+                    assert tgt.pool.blobs.dtype == torch.int8
+                    assert torch.equal(tgt.pool.blobs[slot], blobs[rid][0])
+                    assert torch.equal(tgt.pool.blob_scales[slot],
+                                       blobs[rid][1])
                 assert tgt.requests[rid].n_migrations == 1
         eng.run(2000)
         return reqs

@@ -125,9 +125,11 @@ def test_fleet_chaos_dense_8(placement):
     assert len(kills0) == 2 and kills0[0]["t_rejoin"] <= kills0[1]["t_fail"]
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "mixtral-8x7b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "mixtral-8x7b",
+                                  "recurrentgemma-9b"])
 def test_fleet_chaos_matches_reference_engine(arch):
-    """Converted float32 weights, dense and MoE: the port's 8-instance
+    """Converted float32 weights, dense, MoE and hybrid (whose staged jobs
+    carry state blobs: the views hold the blob tallies): the port's 8-instance
     storm gives the reference engine's streams, failure_events (every
     key), control.describe() and, step for step, the same read views
     (queued requests, scheduled rejoins, staged jobs, staged and dropped

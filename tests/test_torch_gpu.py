@@ -23,6 +23,7 @@ from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.kernels.ref import (paged_attention_int8_ref,  # noqa: E402
                                      paged_attention_ref, ssd_scan_ref)
 from repro_torch.models import api  # noqa: E402
+from repro_torch.models import hybrid  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import paged_decode as PD  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
@@ -185,6 +186,35 @@ def test_dense_config_head_geometries_match_plain(card, smoke, name, width,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [16, 128])
+def test_recurrentgemma_head_geometry_matches_plain(card, smoke, width,
+                                                    dtype):
+    """Both attention kernels at recurrentgemma-9b's local attention: MQA
+    H 16 / K 1 / D 256 (rep 16: two 8-head tiles of 32 lanes a row), B 8,
+    page 16, lengths up to 256 and up to its 2048-token window, with and
+    without window starts, against their plain versions."""
+    cfg = get_config("recurrentgemma-9b")
+    shape = (8, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 16, width)
+    assert shape[1:4] == (16, 1, 256)
+    q, kp, vp, bt, ln, st = _case(*shape, torch.float32)
+    (kq, ks), (vq, vs) = PA8.quantize_pages(kp), PA8.quantize_pages(vp)
+    q = q.to(dtype)
+    for kernel, plain, args in (
+            (PA.paged_attention, paged_attention_ref,
+             (q, kp.to(dtype), vp.to(dtype), bt, ln)),
+            (PA8.paged_attention_int8, paged_attention_int8_ref,
+             (q, kq, ks, vq, vs, bt, ln))):
+        for starts in (None, st):
+            got = kernel(*args, starts)
+            torch.cuda.synchronize()
+            want = plain(*args, starts)
+            assert got.dtype == dtype and got.shape == q.shape
+            err, limit = smoke.seq_errors(got, want, dtype)
+            assert bool((err <= limit).all()), (width, dtype)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["bf16", "int8"])
 @pytest.mark.parametrize("width", [16, 256])
 def test_split_boundaries_length_1_and_masked_splits(card, smoke, kind,
@@ -338,6 +368,95 @@ def test_chunked_prefill_bit_equal_to_monolithic_on_card(card, name):
                                           toks[:, c0:c0 + chunk], c0,
                                           min(chunk, n - c0), kb, vb)
     assert torch.equal(logits, lm)
+    assert torch.equal(km[:, :n], kb[:, :n].to(km.dtype))
+    assert torch.equal(vm[:, :n], vb[:, :n].to(vm.dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_hybrid_decode_step_runs_through_kernel(card, smoke, kv_quant):
+    """One paged decode step of the reduced float32 recurrentgemma on the
+    card, past its 64-token window on the last slot: the kernel once per
+    local-attention layer, and the CPU step's logits, pages and state blobs
+    (int8: the pool and the blob stay int8)."""
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b").reduced(),
+                              dtype="float32", kv_dtype="float32")
+    params = api.init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_card(v) for v in tree]
+        return tree.to(card)
+
+    width = PD.table_pages(cfg, 4 * cfg.sliding_window)      # the ring, 9
+    kp, vp = PD.init_pages(cfg, 4 * width + 1, cfg.page_size, device="cpu")
+    kp.normal_(generator=torch.Generator().manual_seed(1))
+    vp.normal_(generator=torch.Generator().manual_seed(2))
+    blobs = torch.randn((5, hybrid.state_blob_words(cfg)),
+                        generator=torch.Generator().manual_seed(3))
+    pool = [kp, vp, blobs]
+    scales = {}
+    if kv_quant:
+        (kp, ks), (vp, vs), (blobs, bs) = (PA8.quantize_pages(t)
+                                           for t in pool)
+        pool = [kp, vp, blobs]
+        scales = dict(k_scales=ks, v_scales=vs, blob_scales=bs)
+    tables = torch.arange(1, 4 * width + 1, dtype=torch.int32).reshape(
+        4, width)
+    slots = torch.tensor([1, 2, 3, 4], dtype=torch.int32)
+    pos = torch.tensor([3, 9, 17, 80], dtype=torch.int32)
+    base = torch.tensor([0, 0, 0, 16], dtype=torch.int32)
+    tok = torch.tensor([5, 7, 11, 13], dtype=torch.int32)
+    on_card = [t.to(card) for t in pool]       # copies, before the CPU step
+    card_scales = {k: v.to(card) for k, v in scales.items()}
+    cpu = PD.decode_step_paged_hybrid(cfg, params, tok, *pool, tables, slots,
+                                      pos, base=base, **scales)
+    kernel = PA8 if kv_quant else PA
+    before = kernel.launches
+    gpu = PD.decode_step_paged_hybrid(
+        cfg, to_card(params), tok.to(card), *on_card, tables.to(card),
+        slots.to(card), pos.to(card), base=base.to(card), **card_scales)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + len(PD.kv_layer_indices(cfg)) \
+        * smoke.launches_per_call(width)
+    torch.testing.assert_close(gpu[1].cpu(), cpu[1], rtol=1e-4, atol=1e-4)
+    for got, want in zip(on_card, pool):
+        assert got.dtype == want.dtype
+        if kv_quant:       # an int8 word may round the other way
+            assert (got.cpu().int() - want.int()).abs().max() <= 1
+        else:
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-4,
+                                       atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_hybrid_chunked_prefill_bit_equal_to_monolithic_on_card(card):
+    """Full width, 3 layers (rglru, rglru, local attention), bf16, a
+    200-token prompt in bucket 256: chunks of 64 give the monolithic
+    prefill's logits, K/V rows and state blob bit for bit (products in
+    64-row blocks, the RG-LRU scan position by position)."""
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"), n_layers=3)
+    params = api.init_params(cfg, torch.Generator(card).manual_seed(0),
+                             device=card)
+    gates = hybrid.gate_tables(cfg, params)
+    n, bucket, chunk = 200, 256, 64
+    toks = torch.zeros((1, bucket), dtype=torch.int32, device=card)
+    toks[0, :n] = torch.randint(1, cfg.vocab_size, (n,),
+                                generator=torch.Generator(card).manual_seed(1),
+                                device=card)
+    lm, km, vm, bm = PD.prefill_hybrid_bucketed(cfg, params, toks, n,
+                                                gates=gates)
+    kb, vb = PD.init_chunk_buffers(cfg, bucket, device=card)
+    st = PD.init_hybrid_chunk_state(cfg, device=card)
+    for c0 in range(0, n, chunk):
+        logits, kb, vb, st, blob = PD.prefill_hybrid_chunk(
+            cfg, params, toks[:, c0:c0 + chunk], c0, min(chunk, n - c0), kb,
+            vb, st, gates=gates)
+    assert torch.equal(logits, lm)
+    assert torch.equal(blob, bm)
     assert torch.equal(km[:, :n], kb[:, :n].to(km.dtype))
     assert torch.equal(vm[:, :n], vb[:, :n].to(vm.dtype))
 

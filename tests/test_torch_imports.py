@@ -38,13 +38,14 @@ def test_port_and_chip_smoke_import_without_jax_or_reference():
                          text=True, env=env, cwd=ROOT, timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 27                       # every submodule imported
+    assert len(names) >= 28                       # every submodule imported
     assert {"repro_torch.kernels.build",
             "repro_torch.kernels.paged_attention_int8",
             "repro_torch.kernels.ops",
             "repro_torch.kernels.ssd_scan",
             "repro_torch.models.ssm",
             "repro_torch.models.moe",
+            "repro_torch.models.hybrid",
             "repro_torch.models.api",
             "repro_torch.distributed.sharding"} <= names
 

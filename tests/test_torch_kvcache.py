@@ -241,3 +241,116 @@ def test_block_io_bit_exact():
     assert torch.equal(b.v[:, :, 5], a.v[:, :, 7])
     untouched = [s for s in range(9) if s not in (0, 5)]
     assert not b.k[:, :, untouched].any()
+
+
+# -- blob store (opaque per-request state: the hybrid's RG-LRU) -------------
+# the reference's own cases (tests/test_kvcache.py), then the port's pool
+# against the reference's on one operation log, and bit-exact blob IO
+
+def test_blob_alloc_free_roundtrip():
+    pool = PagedKVPool(n_blocks=8, page_size=16, blob_words=4, n_blobs=2)
+    ref = pool.allocate_blob(1)
+    assert ref.kind == "blob" and not ref.replicated
+    assert pool.blob_ref(1) is ref
+    pool.allocate_blob(2)
+    with pytest.raises(MemoryError):
+        pool.allocate_blob(3)
+    pool.free(1)                               # frees KV blocks AND the blob
+    pool.allocate_blob(3)
+    assert pool.blob_ref(1) is None
+
+
+def test_blob_dirty_tracking():
+    pool = PagedKVPool(n_blocks=8, page_size=16, blob_words=4, n_blobs=2)
+    ref = pool.allocate_blob(1)
+    ref.replicated = True
+    pool.mark_blob_dirty(1)
+    assert not ref.replicated
+    pool.mark_blob_dirty(99)                   # unknown rid: no-op
+
+
+def test_blob_replica_host_promote_drop():
+    pool = PagedKVPool(n_blocks=8, page_size=16, blob_words=4, n_blobs=3)
+    assert pool.host_replica(peer=7, rid=42, n_blocks=2)
+    assert pool.host_blob_replica(peer=7, rid=42)
+    assert pool.host_blob_replica(peer=7, rid=42)      # idempotent
+    assert pool.replica_blobs_used() == 1
+    refs = pool.promote_replica(7, 42)
+    assert len(refs) == 2
+    assert pool.blob_ref(42) is not None               # blob promoted along
+    assert pool.replica_blobs_used() == 0
+    pool.free(42)
+    # drop_replica frees the blob slot with the KV slots
+    pool.host_replica(1, 5, 1)
+    pool.host_blob_replica(1, 5)
+    pool.drop_replica(1, 5)
+    assert pool.replica_blobs_used() == 0
+    assert len(pool._blob_free) == 3
+
+
+def test_blob_pressure_eviction():
+    pool = PagedKVPool(n_blocks=8, page_size=16, blob_words=4, n_blobs=2)
+    pool.host_replica(1, 10, 1)
+    pool.host_blob_replica(1, 10)
+    pool.host_replica(1, 11, 1)
+    pool.host_blob_replica(1, 11)
+    assert not pool.host_blob_replica(2, 12)   # store full: never raises
+    dropped = pool.evict_blob_replicas_for_pressure()
+    assert dropped == 1                        # whole replica table dropped
+    assert pool.host_blob_replica(2, 12)
+
+
+def _blob_log(pool):
+    """One mixed operation log over the blob store; what it observes."""
+    out = []
+    for rid in (1, 2):
+        pool.allocate(rid, 5)
+        out.append(pool.allocate_blob(rid).slot)
+    pool.host_replica(3, 9, 2)
+    out.append(pool.host_blob_replica(3, 9))
+    out.append(pool.host_blob_replica(4, 8))   # full: False
+    out.append(pool.evict_blob_replicas_for_pressure())
+    out.append(pool.host_blob_replica(4, 8))
+    pool.free(1)
+    refs = pool.promote_replica(4, 8)
+    out.append((len(refs), pool.blob_ref(8).slot))
+    out.append((sorted(pool._blob_free), pool.replica_blobs_used(),
+                pool.n_free))
+    return out
+
+
+def test_blob_bookkeeping_matches_reference():
+    kw = dict(n_blocks=10, page_size=4, blob_words=6, n_blobs=3)
+    assert _blob_log(PagedKVPool(**kw)) == _blob_log(JPool(**kw))
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_blob_io_and_copies_bit_exact(quantized):
+    """write_blob / read_blob (int8: one scale per blob, the reference's
+    quantizer) and copy_blobs_to between two pools: the copy is the
+    source's bytes, scales included; message sizes as the reference's."""
+    kw = dict(n_layers=1, n_kv_heads=1, head_dim=8, real=True,
+              blob_words=16, n_blobs=4, quantized=quantized)
+    a = PagedKVPool(6, 4, device="cpu", **kw)
+    b = PagedKVPool(6, 4, device="cpu", **kw)
+    vec = torch.linspace(-2.0, 2.0, 16)
+    a.write_blob(1, vec)
+    a.write_blob(2, torch.zeros(16))
+    back = a.read_blob(1)
+    if quantized:
+        assert a.blobs.dtype == torch.int8
+        assert float((back - vec).abs().max()) < 2 * 2.0 / 127
+        assert a.blob_nbytes == 16 + 2          # int8 words + a bf16 scale
+        payload, scale = a.read_blob_quantized(1)
+        assert payload.dtype == torch.int8 and scale.shape == (1,)
+    else:
+        assert torch.equal(back, vec)
+        assert a.blob_nbytes == 64               # f32 carrier
+    assert not a.read_blob(2).any()
+    a.copy_blobs_to(b, [1, 2], [3, 0])
+    assert torch.equal(b.blobs[3], a.blobs[1])
+    assert torch.equal(b.blobs[0], a.blobs[2])
+    if quantized:
+        assert torch.equal(b.blob_scales[3], a.blob_scales[1])
+    ref = JPool(6, 4, **kw)
+    assert ref.blob_nbytes == a.blob_nbytes

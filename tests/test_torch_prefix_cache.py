@@ -215,21 +215,26 @@ def _serve_parity(eng, cls, prompts):
 
 PARITY = {"chunked": dict(prefill_chunk=8),
           "chunked_int8": dict(prefill_chunk=8, kv_quant=True),
-          "monolithic": dict()}
+          "monolithic": dict(),
+          # a hybrid hit shares pages but recomputes the prompt (its RG-LRU
+          # state spans the prefix): no prompt compute is saved
+          "hybrid_chunked": dict(prefill_chunk=8, arch="recurrentgemma-9b")}
 
 
 @pytest.fixture(scope="module", params=sorted(PARITY))
 def reference_run(request):
-    """One reference run per case (float32 reduced llama3-8b, 2 instances,
-    replication on): its streams, stats, chain keys and weights."""
-    jcfg = dataclasses.replace(jax_config("llama3-8b").reduced(), **F32)
-    ecfg = dict(max_slots=4, max_seq=64, prefix_cache=True,
-                **PARITY[request.param])
+    """One reference run per case (float32 reduced llama3-8b unless the
+    case names its arch, 2 instances, replication on): its streams, stats,
+    chain keys and weights."""
+    kw = dict(PARITY[request.param])
+    arch = kw.pop("arch", "llama3-8b")
+    jcfg = dataclasses.replace(jax_config(arch).reduced(), **F32)
+    ecfg = dict(max_slots=4, max_seq=64, prefix_cache=True, **kw)
     jeng = JRealEngine(jcfg, JEngineConfig(**ecfg), n_instances=2, seed=0)
     prompts = _parity_prompts(jcfg.vocab_size)
     streams = _serve_parity(jeng, JRequest, prompts)
     params = jax.tree_util.tree_map(np.asarray, jeng.params)
-    return dict(ecfg=ecfg, prompts=prompts, streams=streams,
+    return dict(arch=arch, ecfg=ecfg, prompts=prompts, streams=streams,
                 prefix=jeng.prefix_stats(), disagg=jeng.disagg_stats(),
                 keys=[sorted(i.pool.prefix_index) for i in jeng.instances],
                 params=params)
@@ -240,7 +245,7 @@ def test_prefix_cache_matches_reference_engine(reference_run):
     chain keys of each instance equal the reference engine's (float32 so
     the decisions and the arithmetic are the same)."""
     ref = reference_run
-    cfg = dataclasses.replace(get_config("llama3-8b").reduced(), **F32)
+    cfg = dataclasses.replace(get_config(ref["arch"]).reduced(), **F32)
     teng = RealEngine(cfg, EngineConfig(**ref["ecfg"]), n_instances=2,
                       device="cpu",
                       params=from_jax_numpy(ref["params"], device="cpu"))
@@ -253,6 +258,9 @@ def test_prefix_cache_matches_reference_engine(reference_run):
         ref["keys"]
     stats = teng.prefix_stats()
     assert stats["prefix_cached_tokens"] > 0 and stats["cow_copies"] >= 1
+    if cfg.arch_type == "hybrid":
+        assert stats["prefill_compute_tokens"] == \
+            stats["prefill_total_tokens"]
 
 
 # -- torch against torch -------------------------------------------------------
@@ -306,16 +314,18 @@ def _warm_run(kv_quant, prefix_cache, prime_ids, follower_ids, out=6,
     return eng, [r.output_tokens for r in followers], pages
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "mixtral-8x7b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "mixtral-8x7b",
+                                  "recurrentgemma-9b"])
 @pytest.mark.parametrize("prefill_chunk", [8, 0])
 @pytest.mark.parametrize("kv_quant", [False, True])
 def test_shared_prefix_equivalent_to_cold_start(kv_quant, prefill_chunk,
                                                 arch):
-    """bf16 and int8 pools, chunked and monolithic prefill, dense and MoE:
-    two followers repeating a primed 20-token prompt produce the exact
-    cold-start token streams AND byte-identical prompt pages, while
+    """bf16 and int8 pools, chunked and monolithic prefill, dense, MoE and
+    hybrid: two followers repeating a primed 20-token prompt produce the
+    exact cold-start token streams AND byte-identical prompt pages, while
     genuinely hitting the cache; the chunked bf16 pool also skips prompt
-    compute."""
+    compute, except on the hybrid, whose RG-LRU state spans the prefix (a
+    hit shares pages but recomputes: compute saved is 0)."""
     rng = np.random.default_rng(0)
     ids = rng.integers(1, 1024, 20).tolist()
     warm_eng, warm_toks, warm_pages = _warm_run(
@@ -332,7 +342,7 @@ def test_shared_prefix_equivalent_to_cold_start(kv_quant, prefill_chunk,
     stats = warm_eng.prefix_stats()
     assert stats["enabled"] and stats["prefix_cached_tokens"] >= 16
     assert cold_eng.prefix_stats()["prefix_cached_tokens"] == 0
-    skips = prefill_chunk and not kv_quant
+    skips = prefill_chunk and not kv_quant and arch != "recurrentgemma-9b"
     assert (stats["prefill_compute_tokens"] < stats["prefill_total_tokens"]) \
         == bool(skips)
 

@@ -86,6 +86,20 @@ def dbrx_one_layer_url():
 
 
 @pytest.fixture(scope="module")
+def hybrid_url():
+    """The reduced recurrentgemma-9b (rglru, rglru, local attention; window
+    64) with chunked prefill."""
+    yield from _server("--arch", "recurrentgemma-9b", "--prefill-chunk", "8")
+
+
+@pytest.fixture(scope="module")
+def hybrid_disagg_url():
+    """The hybrid on the int8 pool, prefix cache on, disaggregated."""
+    yield from _server("--arch", "recurrentgemma-9b", "--kv-quant",
+                       "--prefix-cache", "--disaggregate")
+
+
+@pytest.fixture(scope="module")
 def disagg_url():
     """Prefill/decode roles; the chunk size defaults to 8."""
     yield from _server("--disaggregate")
@@ -447,3 +461,89 @@ def test_fail_instance_if_busy_kills_only_a_busy_instance():
     assert not busy.alive
     eng.run(max_iters=500)
     assert sorted(r.rid for r in eng.done) == [r.rid for r in reqs]
+
+
+def _kill_under_traffic(url, prompts, max_tokens, want):
+    """POST the prompts concurrently, kill instance 0 once it decodes, and
+    check every stream equals ``want`` with a migration."""
+    results = [None] * len(prompts)
+
+    def one(i):
+        results[i] = _post(url + "/v1/completions",
+                           {"prompt_tokens": prompts[i],
+                            "max_tokens": max_tokens})
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    deadline = time.time() + 60
+    while True:
+        inst = _health(url)["instances"]
+        if sum(i["active"] for i in inst) == len(prompts) and \
+                inst[0]["active"] > inst[0]["prefilling"]:
+            break
+        assert time.time() < deadline, "instance 0 never started decoding"
+        time.sleep(0.005)
+    fault = _post(url + "/v1/admin/fault",
+                  {"granularity": "instance", "instance_id": 0,
+                   "if_busy": True})
+    for t in threads:
+        t.join(timeout=120)
+    assert fault["applied"] and fault["seamlessly_resumed"]
+    assert [r["choices"][0]["token_ids"] for r in results] == want
+    assert any(r["kevlarflow"]["migrations"] == 1 for r in results)
+
+
+# reduced recurrentgemma-9b: one KV block is the attention layer's K and V
+# rows of a page (1 KV head x page 8 x D 64, bf16); one blob is both RG-LRU
+# layers' h (256) and conv state (3 x 256) in f32 words
+HYBRID_BLOCK, HYBRID_BLOB = 2 * 1 * 1 * 8 * 64 * 2, 4 * 2 * 4 * 256
+
+
+def test_hybrid_completion_roundtrip_and_kill(hybrid_url):
+    """``--arch recurrentgemma-9b``: greedy completions past the 64-token
+    window repeat, /health counts the replicated state blobs beside the
+    blocks (about one blob per request step, and the bytes are blocks and
+    blobs times their sizes), and an instance kill under live traffic
+    resumes every stream byte-identically from the promoted blocks and
+    blob."""
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, VOCAB, n).tolist() for n in (8, 21, 40, 13)]
+    url = hybrid_url + "/v1/completions"
+    want = [_post(url, {"prompt_tokens": p, "max_tokens": 40})
+            for p in prompts]
+    assert {o["model"] for o in want} == {"recurrentgemma-9b-reduced"}
+    want = [o["choices"][0]["token_ids"] for o in want]
+    again = _post(url, {"prompt_tokens": prompts[2], "max_tokens": 40})
+    assert again["choices"][0]["token_ids"] == want[2]
+    repl = _health(hybrid_url)["replication"]
+    assert repl["blocks_total"] > 0 and repl["blobs_total"] > 0
+    assert 0.5 < repl["blobs_per_request_step"] <= 1.0
+    assert repl["bytes_total"] == repl["blocks_total"] * HYBRID_BLOCK + \
+        repl["blobs_total"] * HYBRID_BLOB
+    _kill_under_traffic(hybrid_url, prompts, 40, want)
+
+
+def test_hybrid_disaggregated_int8_prefix_service(hybrid_disagg_url):
+    """``--arch recurrentgemma-9b --kv-quant --prefix-cache
+    --disaggregate``: repeated prompts give equal streams, every handoff
+    carries one int8 blob (payload and one scale) beside its int8 blocks,
+    and a repeat hits the prefix cache but recomputes its prompt."""
+    rng = np.random.default_rng(8)
+    shared = rng.integers(1, VOCAB, 16).tolist()
+    prompts = [shared + rng.integers(1, VOCAB, n).tolist() for n in (3, 9)]
+    url = hybrid_disagg_url + "/v1/completions"
+    first = [_post(url, {"prompt_tokens": p, "max_tokens": 12})
+             for p in prompts]
+    second = [_post(url, {"prompt_tokens": p, "max_tokens": 12})
+              for p in prompts]
+    assert [o["choices"][0]["token_ids"] for o in first] == \
+        [o["choices"][0]["token_ids"] for o in second]
+    h = _health(hybrid_disagg_url)
+    d, pre = h["disagg"], h["prefix"]
+    assert d["handoffs_seated"] == 4 and d["handoff_blobs_total"] == 4
+    int8_block = 2 * 1 * 1 * 8 * (64 + 2)
+    assert d["handoff_bytes_total"] == d["handoff_blocks_total"] * int8_block \
+        + d["handoff_blobs_total"] * (2 * 4 * 256 + 2)
+    assert pre["prefix_cached_tokens"] > 0
+    assert pre["prefill_compute_tokens"] == pre["prefill_total_tokens"]

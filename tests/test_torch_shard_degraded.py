@@ -143,9 +143,10 @@ def test_shard_degraded_dense_8(cfg):
     assert _streams(eng) == _failure_free(cfg, 8, _workload(cfg, 16))
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "mixtral-8x7b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "mixtral-8x7b",
+                                  "recurrentgemma-9b"])
 def test_shard_degraded_drill_matches_reference_engine(arch):
-    """Converted float32 weights, dense and MoE: the port's 8-instance
+    """Converted float32 weights, dense, MoE and hybrid: the port's 8-instance
     drill gives the reference engine's streams, failure_events (every
     key), control.describe() and replication tallies (those landing on the
     degraded instance included) and, step for step, the same read views
@@ -170,8 +171,8 @@ def test_shard_degraded_drill_matches_reference_engine(arch):
     assert teng.failure_events == jeng.failure_events
     assert teng.control.describe() == jeng.control.describe()
     trepl, jrepl = teng.replication_stats(), jeng.replication_stats()
-    for key in ("blocks_total", "bytes_to_degraded", "blocks_to_degraded",
-                "retire_msgs_total"):
+    for key in ("blocks_total", "blobs_total", "bytes_to_degraded",
+                "blocks_to_degraded", "retire_msgs_total"):
         assert trepl[key] == jrepl[key], key
 
 

@@ -2,9 +2,11 @@
 over shapes) against the reference's (``jax.sharding`` specs over an
 abstract mesh): ``param_spec`` under every profile on a sweep of shapes,
 the decode-cache rules of every family, and ``degradation_summary`` —
-key for key — for the five full-size dense configs, 4 and 8 shards, and
-several lost sets. Nothing is allocated: the reference's trees come from
-``jax.eval_shape`` and the port's from meta tensors."""
+key for key — for the five full-size dense configs, the MoE configs and
+the hybrid recurrentgemma-9b (its per-layer param list and per-layer decode
+state), 4 and 8 shards, and several lost sets. Nothing is allocated: the
+reference's trees come from ``jax.eval_shape`` and the port's from meta
+tensors."""
 import itertools
 
 import numpy as np
@@ -26,6 +28,7 @@ from repro_torch.serving.engine import EngineConfig, RealEngine  # noqa: E402
 
 DENSE = ["llama3-8b", "yi-9b", "qwen1.5-0.5b", "qwen1.5-32b", "deepseek-67b"]
 MOE = ["mixtral-8x7b", "dbrx-132b"]
+HYBRID = ["recurrentgemma-9b"]
 LOST = [{1}, {1, 2}, {0, 2, 3}]
 
 
@@ -44,7 +47,7 @@ def _trees(name):
     return name, jp, jc, tp, tc
 
 
-@pytest.fixture(scope="module", params=DENSE + MOE)
+@pytest.fixture(scope="module", params=DENSE + MOE + HYBRID)
 def trees(request):
     return _trees(request.param)
 
@@ -159,7 +162,7 @@ def test_cache_specs_match_reference(arch):
         assert got == [tuple(w) for w in want], (arch, nd, nm)
 
 
-@pytest.mark.parametrize("name", ["llama3-8b", "qwen1.5-32b"] + MOE)
+@pytest.mark.parametrize("name", ["llama3-8b", "qwen1.5-32b"] + MOE + HYBRID)
 def test_engine_degradation_layout_matches_reference(name):
     """The layout each engine attaches to a degraded instance (its own
     params and decode-cache shapes) on the reduced config."""

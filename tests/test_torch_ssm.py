@@ -211,10 +211,13 @@ def test_api_dispatch():
     assert api.decode_window(dense, 100_000) == dense.long_context_window
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
         api.prefill(dense, {}, {"tokens": torch.zeros(1, 4, dtype=torch.int32)})
-    for arch_type in ("hybrid", "vlm", "audio"):
+    for arch_type in ("vlm", "audio"):
         other = dataclasses.replace(dense, arch_type=arch_type)
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             api.family(other)
+    # the hybrid family's model API is ported (tests/test_torch_hybrid.py)
+    hybrid_cfg = dataclasses.replace(dense, arch_type="hybrid")
+    assert api.family(hybrid_cfg).__name__ == "repro_torch.models.hybrid"
 
 
 # --------------------------------------------------------------------------

@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
   python3 chip_smoke.py
+  python3 chip_smoke.py --drill-only    # phase 20 alone (after 1)
 
 Phases (each raises, and the script exits non-zero, if its check fails):
 
@@ -116,23 +117,49 @@ Phases (each raises, and the script exits non-zero, if its check fails):
                 recover restores it HEALTHY at full capacity; every stream
                 equals failure-free serving. Then one cold init_params +
                 executor build of Llama-3.1-8B, timed, for comparison.
-  19. dense configs — after freeing Llama's weights: yi-9b (48 layers),
+  19. decoupled init — the same weights resident on every node of a
+                2 x 4 group (metadata pools); the port's CommunicatorManager
+                builds a FamilyExecutor per new topology and runs one
+                bucketed prefill (200 tokens) and one decode step: the
+                initial form, a re-form with stage 2 on instance 1's node
+                and the return to the first topology (a cache hit) timed;
+                one cache hit and two builds, every parameter's data_ptr
+                unchanged, allocated memory after the re-form within 5% of
+                the weights' bytes, equal decode logits on both topologies;
+                for information, the fleet phase's cold init and a timed
+                copy of the weights' bytes from pinned host memory.
+  20. open-loop failure drill — a ShareGPT-shaped Poisson workload (1.5
+                req/s over 20 s, prompts of mean 220 up to 448 tokens,
+                outputs of mean 64 up to 128; the port's poisson_workload
+                and attach_prompt_tokens) replayed open-loop through
+                EngineService (2 instances, 8 slots, chunks of 64, warm
+                spares 0.5 s after a kill, a 10 s reload stall under
+                standard): failure-free under kevlarflow (the reference
+                streams), then instance 0 killed at 8 s under kevlarflow
+                and under standard recovery. Every request completes and
+                every stream equals its failure-free stream; kevlarflow
+                migrates and restarts only mid-prefill victims, standard
+                restarts and migrates none. Per run: MTTR, latency and TTFT
+                (avg, p99), TPOT, goodput, retries, migrations; then the
+                standard / kevlarflow ratios. If the failure-free p99 TTFT
+                exceeds 2 s, all three run again at half the rate.
+  21. dense configs — after freeing Llama's weights: yi-9b (48 layers),
                 qwen1.5-0.5b (24), qwen1.5-32b (all 64 layers, int8
                 pool) and deepseek-67b (52 of its 95 layers), full width,
                 random weights: served twice (equal streams), an instance
                 kill (streams equal failure-free), the replication block
                 bytes checked, TTFT / latency / tokens per second, and a
                 decode-step profile.
-  20. moe config mixtral-8x7b — full width, 26 of 32 layers (the
+  22. moe config mixtral-8x7b — full width, 26 of 32 layers (the
                 deepest that fits; the peak is printed), fresh random
                 weights: the Llama prompt set served twice over HTTP, an
                 instance kill, the decode profile (synchronizing calls per
                 step equal to the dense step's), and the MoE MLP alone at
                 B 8: device time per layer and step beside its weight-read
                 bound.
-  21. moe invariants / moe window mixtral-8x7b — engines stepped by hand,
+  23. moe invariants / moe window mixtral-8x7b — engines stepped by hand,
                 every stream bit for bit: chunked prefill (chunks of 64)
-                equal to the monolithic streams of phase 20; the
+                equal to the monolithic streams of phase 22; the
                 shared-prefix set with the prefix cache equal to cold; the
                 int8 pool with chunks of 64 through a kill equal to the same
                 path without it (and its decode profile); then two
@@ -140,9 +167,9 @@ Phases (each raises, and the script exits non-zero, if its check fails):
                 4096-token window: pages recycle (retire messages, at most
                 257 resident), and a kill after the slide resumes both
                 streams byte-identically.
-  22. moe config dbrx-132b — after freeing mixtral: 11 of 40 layers, the
-                same serving, kill, decode and MoE MLP profiles as phase 20.
-  23. hybrid config recurrentgemma-9b — after freeing dbrx: full width and
+  24. moe config dbrx-132b — after freeing mixtral: 11 of 40 layers, the
+                same serving, kill, decode and MoE MLP profiles as phase 22.
+  25. hybrid config recurrentgemma-9b — after freeing dbrx: full width and
                 all 38 layers (26 RG-LRU, 12 local attention; fresh random
                 weights): the Llama prompt set served twice over HTTP (equal
                 streams), an instance kill (streams equal, a migration: the
@@ -153,7 +180,7 @@ Phases (each raises, and the script exits non-zero, if its check fails):
                 weight-read bound (from the params, the f32 gate copies
                 included) and the sequential RG-LRU scan's time and launches
                 in prefill (256 and 2048 positions).
-  24. hybrid invariants — engines stepped by hand, every stream bit for
+  26. hybrid invariants — engines stepped by hand, every stream bit for
                 bit: chunked prefill (chunks of 64) equal to monolithic, the
                 two prefills' state blobs equal (largest difference printed);
                 the int8 pool with chunks of 64 through a kill equal to the
@@ -161,11 +188,11 @@ Phases (each raises, and the script exits non-zero, if its check fails):
                 shared-prefix set with the prefix cache equal to cold (hits
                 share pages, every prompt token recomputed) and
                 disaggregated equal to colocated (one blob per handoff).
-  25. hybrid window — two 2030-token prompts, 48 greedy tokens each, past
+  27. hybrid window — two 2030-token prompts, 48 greedy tokens each, past
                 the 2048-token window: pages recycle (retire messages, at
                 most 129 resident), the kernels' window starts run at D 256,
                 and a kill after the slide resumes both streams.
-  26. mamba2 generation — full-width mamba2-130m (bf16, random weights from
+  28. mamba2 generation — full-width mamba2-130m (bf16, random weights from
                 torch.Generator seed 0) through api.prefill and
                 api.decode_step: 8 prompts of 512 tokens (2 chunks), then 8
                 of 200 (one ragged chunk), 64 greedy tokens each, twice:
@@ -174,7 +201,7 @@ Phases (each raises, and the script exits non-zero, if its check fails):
                 kernel prefill against the plain chunked form, and forward
                 at t against prefill(:t) plus one decode step; prefill and
                 decode-step profiles.
-  27. summary — the head-geometry timings, one JSON line of kernels, the
+  29. summary — the head-geometry timings, one JSON line of kernels, the
                 card line, and the final {"ok": true, "device": ...} line.
 
 Each path's kernel launch counts are set to 0 just before the path and read
@@ -207,6 +234,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.cluster import build_group  # noqa: E402
+from repro_torch.core.communicator import CommunicatorManager  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
 from repro_torch.kernels import paged_attention_int8 as PA8  # noqa: E402
 from repro_torch.kernels import ref as REF  # noqa: E402
@@ -219,8 +248,13 @@ from repro_torch.models import paged_decode as PD  # noqa: E402
 from repro_torch.models.transformer import layer_params  # noqa: E402
 from repro_torch.serving.engine import (EngineConfig,  # noqa: E402
                                         FamilyExecutor, RealEngine)
-from repro_torch.serving.request import Request, RequestState  # noqa: E402
-from repro_torch.serving.server import serve  # noqa: E402
+from repro_torch.serving.api_types import FaultSpec  # noqa: E402
+from repro_torch.serving.kvcache import PagedKVPool  # noqa: E402
+from repro_torch.serving.request import (Request, RequestState,  # noqa: E402
+                                         summarize)
+from repro_torch.serving.server import EngineService, serve  # noqa: E402
+from repro_torch.serving.workload import (attach_prompt_tokens,  # noqa: E402
+                                          poisson_workload)
 
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,         # dense tensor-core bf16
@@ -1945,11 +1979,11 @@ def shard_drill(card, svc, client, prompts, want, cfg) -> dict:
     return m
 
 
-def fleet_phases(card, cfg, params) -> int:
+def fleet_phases(card, cfg, params) -> tuple:
     """The 8-instance fleet on the given weights: failure-free serving,
     the chaos drill, the shard drill; then, for comparison with the warm
     spares' rejoin times, one cold init_params + executor build. Returns
-    the bf16 attention kernel's launches."""
+    the bf16 attention kernel's launches and the cold build's seconds."""
     rng = np.random.default_rng(3)
     prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
                for n in rng.integers(16, 201, FLEET_PROMPTS)]
@@ -1993,14 +2027,358 @@ def fleet_phases(card, cfg, params) -> int:
         cfg, torch.Generator(device="cuda").manual_seed(1), device="cuda")
     FamilyExecutor(cfg, ecfg)
     torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
     print(f"cold init_params + executor build of {cfg.name} [{card}] (for "
           f"information, beside the warm-spare rejoins above): "
-          f"{time.perf_counter() - t0:.3f} s")
+          f"{cold_s:.3f} s")
     del cold
+    return launches, cold_s
+
+
+# -- 19. decoupled init -------------------------------------------------------
+
+DECOUPLED_PROMPT = 200     # tokens: bucket 256, 13 pages written
+
+
+def tree_leaves(tree) -> list:
+    """Every tensor of a nested dict / list of tensors, in order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in tree_leaves(v)]
+    return [tree]
+
+
+def pipeline_step(cfg, ex, params):
+    """What a re-formed pipeline runs first: one bucketed prefill of a
+    DECOUPLED_PROMPT-token prompt into a fresh paged pool, then one decode
+    step through ``ex`` (so one attention call a layer). Returns the
+    decode logits."""
+    page = cfg.page_size
+    bucket = PD.next_bucket(DECOUPLED_PROMPT, lo=page)
+    tokens = torch.zeros((1, bucket), dtype=torch.int32, device="cuda")
+    tokens[0, :DECOUPLED_PROMPT] = torch.arange(
+        1, DECOUPLED_PROMPT + 1, device="cuda")
+    logits, k, v = ex.prefill(params, tokens, DECOUPLED_PROMPT)
+    width = bucket // page
+    pool = PagedKVPool(width + 1, page, cfg.n_layers, cfg.n_kv_heads,
+                       cfg.head_dim, real=True, dtype=PD.kv_dtype(cfg),
+                       device="cuda")
+    refs = pool.allocate(0, DECOUPLED_PROMPT + 1)
+    n_pages = -(-DECOUPLED_PROMPT // page)
+    pool.write_blocks([r.slot for r in refs[:n_pages]],
+                      *PD.pack_pages(k, v, n_pages, page))
+    bt = torch.tensor([[r.slot for r in refs] + [width] * (width - len(refs))],
+                      dtype=torch.int32, device="cuda")
+    pos = torch.tensor([DECOUPLED_PROMPT], dtype=torch.int32, device="cuda")
+    first = logits.argmax(-1).to(torch.int32)
+    _, out = ex.decode(params, first, pool.k, pool.v, None, None, bt, pos,
+                       torch.zeros_like(pos), None)
+    torch.cuda.synchronize()
+    return out
+
+
+def pinned_copy_s(leaves) -> float:
+    """Device time of copying ``leaves``' bytes from pinned host memory to
+    the card, through one 512 MiB pinned buffer and one device buffer (each
+    piece first staged to the host, untimed): the on-machine part of a
+    weight load."""
+    chunk = 512 * 2**20
+    host = torch.empty(chunk, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(chunk, dtype=torch.uint8, device="cuda")
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    total_ms = 0.0
+    for t in leaves:
+        flat = t.reshape(-1).view(torch.uint8)
+        for i in range(0, flat.numel(), chunk):
+            n = min(chunk, flat.numel() - i)
+            host[:n].copy_(flat[i:i + n])
+            torch.cuda.synchronize()
+            start.record()
+            dev[:n].copy_(host[:n], non_blocking=True)
+            stop.record()
+            stop.synchronize()
+            total_ms += start.elapsed_time(stop)
+    del host, dev
+    return total_ms / 1e3
+
+
+def decoupled_init_phase(card, cfg, params, cold_s) -> int:
+    """The torch counterpart of tests/test_decoupled_init.py at full width:
+    a 2 x 4 group (metadata pools) whose nodes hold ``params``; the port's
+    CommunicatorManager builds a FamilyExecutor over them per new topology
+    and runs ``pipeline_step``. The initial form, a re-form with stage 2
+    served by instance 1's node, and the return to the first topology (a
+    cache hit) are timed; no parameter moves and no second copy of the
+    weights appears. Returns the bf16 attention kernel's launches."""
+    group = build_group(2, 4)
+    for node in group.nodes:
+        node.weights = params
+    leaves = tree_leaves(params)
+    ptrs = [t.data_ptr() for t in leaves]
+    weight_bytes = tree_bytes(params)
+    ecfg = EngineConfig(max_slots=8, max_seq=256)
+    outputs = []
+
+    def build_executable(nodes):
+        check(all(n.weights is params for n in nodes),
+              "a node of the pipeline holds other weights")
+        ex = FamilyExecutor(cfg, ecfg)
+        outputs.append(pipeline_step(cfg, ex, nodes[0].weights))
+        return ex
+
+    mgr = CommunicatorManager(build_executable=build_executable)
+    home = group.instances[0].stage_nodes
+    patched = list(home)
+    patched[2] = group.instances[1].home_nodes[2]
+
+    def forms():
+        times, mem = [], []
+        for nodes in (home, patched, home):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr.form(cfg.name, nodes, 0.0)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            mem.append(torch.cuda.memory_allocated())
+        return times, mem
+
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    (times, mem), n = counted("decoupled init", "the three forms", forms,
+                              PA, PA8, cfg.n_layers)
+    t_initial, t_reform, t_cached = times
+    grown = mem[1] - mem0
+    print(f"decoupled init [{card}]: initial form {t_initial:.4f} s, "
+          f"re-form to the patched topology {t_reform:.4f} s, return to "
+          f"the first topology (cache hit) {t_cached * 1e6:.1f} us; stats "
+          f"{mgr.stats}; allocated after the re-form {grown / 2**20:+.1f} "
+          f"MiB against {weight_bytes / 1e9:.3f} GB of weights")
+    check(mgr.stats["cache_hits"] == 1 and mgr.stats["compiles"] == 2,
+          f"communicator stats {mgr.stats}")
+    check([t.data_ptr() for t in leaves] == ptrs,
+          "a parameter tensor moved during the re-forms")
+    check(grown < 0.05 * weight_bytes,
+          f"allocated grew by {grown} B over the re-form: a second copy "
+          "of the weights?")
+    check(t_cached < t_initial, "the cached form was not faster")
+    check(len(outputs) == 2 and bool(torch.isfinite(outputs[0]).all())
+          and torch.equal(outputs[0], outputs[1]),
+          "the patched pipeline's decode logits differ from the first's")
+    copy_s = pinned_copy_s(leaves)
+    print(f"decoupled init [{card}], for information: cold materialization "
+          f"of {cfg.name}'s params + executor build (fleet phase) "
+          f"{cold_s:.3f} s; host-to-device copy of the "
+          f"{weight_bytes / 1e9:.3f} GB of weights from pinned host memory "
+          f"{copy_s:.3f} s "
+          f"({weight_bytes / copy_s / 1e9:.1f} GB/s) — the part of a weight "
+          "load that happens on this machine; a fetch from remote storage "
+          "is not measured")
+    return n
+
+
+# -- 20. open-loop failure drill ----------------------------------------------
+
+# ShareGPT-shaped prompts at the paper's lengths, outputs shortened so a run
+# takes tens of seconds; the kill lands at DRILL_FAIL_AT seconds
+DRILL_WORKLOAD = dict(duration=20.0, seed=0, prompt_mean=220.0,
+                      max_prompt=448, output_mean=64.0, min_output=4,
+                      max_output=128)
+DRILL_RPS, DRILL_FAIL_AT = 1.5, 8.0
+DRILL_TTFT_P99_LIMIT = 2.0   # seconds: above it queueing decides the numbers
+
+
+def drill_ecfg(mode: str) -> EngineConfig:
+    # reload_penalty is 20x the rejoin delay, the reference bench's ratio
+    return EngineConfig(max_slots=8, max_seq=640, prefill_chunk=64,
+                        recovery=mode, replicate=mode == "kevlarflow",
+                        auto_rejoin=True, rejoin_delay=0.5,
+                        reload_penalty=10.0)
+
+
+def drill_warmup(svc, cfg):
+    """Every prefill bucket a drill prompt can land in, once, before the
+    clock starts."""
+    page = cfg.page_size
+    buckets = sorted({PD.next_bucket(n, lo=page)
+                      for n in range(page, DRILL_WORKLOAD["max_prompt"] + 1)})
+    rng = np.random.default_rng(1)
+    warm = [svc.submit(rng.integers(1, cfg.vocab_size,
+                                    max(page, b // 2 + 1)).tolist(), 2)
+            for b in buckets]
+    for req in warm:
+        check(svc.wait(req, timeout=300.0), "warm-up request timed out")
+
+
+def drill_kill(svc, t0, out):
+    """At DRILL_FAIL_AT s kill instance 0 as soon as it decodes a request
+    (bounded wait), under the service lock, noting how many of its
+    requests were mid-prefill just before."""
+    while time.time() < t0 + DRILL_FAIL_AT:
+        time.sleep(0.005)
+    deadline = time.time() + 10.0
+    while True:
+        with svc._lock:
+            inst = svc.engine.instances[0]
+            prefilling = inst.prefill_depth()
+            if len(inst.requests) > prefilling or time.time() > deadline:
+                svc.engine.apply_fault(
+                    FaultSpec(granularity="instance", instance_id=0))
+                break
+        time.sleep(0.002)
+    out.update(at=time.time() - t0, prefilling=prefilling)
+
+
+def drill_state() -> dict:
+    """What a run starts from, on the card and on the host: CUDA memory
+    allocated and reserved, live Python threads and objects, and the card's
+    SM clock (against its maximum), temperature and power draw."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,temperature.gpu,"
+         "power.draw", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    sm, sm_max, temp, draw = (float(v) for v in
+                              smi.strip().splitlines()[0].split(","))
+    return {"allocated_gib": torch.cuda.memory_allocated() / 2**30,
+            "reserved_gib": torch.cuda.memory_reserved() / 2**30,
+            "threads": threading.active_count(),
+            "gc_objects": len(gc.get_objects()),
+            "sm_mhz": sm, "sm_max_mhz": sm_max, "temp_c": temp,
+            "power_w": draw}
+
+
+def drill_run(cfg, params, mode, work, kill) -> dict:
+    """One open-loop replay of ``work`` through a fresh EngineService on
+    ``params``: arrivals never wait for the engine; with ``kill``, instance
+    0 dies mid-run. Returns the run's metrics and streams."""
+    svc = EngineService(cfg, drill_ecfg(mode), n_instances=2, device="cuda",
+                        params=params)
+    kill_info = {}
+    try:
+        drill_warmup(svc, cfg)
+        state = drill_state()
+        t0 = time.time()
+        killer = threading.Thread(target=drill_kill,
+                                  args=(svc, t0, kill_info))
+        if kill:
+            killer.start()
+        reqs = []
+        for w in work:
+            dt = t0 + w.arrival_time - time.time()
+            if dt > 0:
+                time.sleep(dt)
+            reqs.append(svc.submit(w.prompt_tokens, w.max_new_tokens))
+        if kill:
+            killer.join(timeout=60)
+            check(not killer.is_alive(), "the kill did not happen")
+        check(svc.drain(timeout=600.0), f"[{mode}] the run did not drain")
+        makespan = time.time() - t0
+        # the spare's rejoin may land after the last completion
+        deadline = time.time() + drill_ecfg(mode).reload_penalty + 5.0
+        while kill and time.time() < deadline:
+            with svc._lock:
+                if svc.engine.mttr_events():
+                    break
+            time.sleep(0.01)
+        with svc._lock:
+            events = [dict(e) for e in svc.engine.failure_events]
+    finally:
+        svc.shutdown()
+    check(svc.error is None, f"[{mode}] the engine loop failed")
+    m = summarize(reqs, span=makespan)
+    m["n_submitted"] = len(reqs)
+    m["makespan_s"] = makespan
+    m["streams"] = [list(r.output_tokens or []) for r in reqs]
+    m["state"] = state
+    if kill:
+        ev = events[0]
+        m.update(killed_at_s=kill_info["at"],
+                 mid_prefill_on_victim=kill_info["prefilling"],
+                 mttr_s=ev["mttr"], victims=ev["n_victims"],
+                 resumed=ev["resumed"], requeued=ev["requeued"],
+                 restarted=ev["restarted"])
+    return m
+
+
+DRILL_KEYS = ("n", "n_submitted", "makespan_s", "mttr_s", "latency_avg",
+              "latency_p99", "ttft_avg", "ttft_p99", "tpot_avg",
+              "goodput_req_s", "goodput_tok_s", "retries", "migrations",
+              "victims", "resumed", "requeued", "restarted", "killed_at_s",
+              "mid_prefill_on_victim", "state")
+
+
+def open_loop_drill_phase(card, cfg, params) -> int:
+    """The paper's open-loop failure drill on the card: a ShareGPT-shaped
+    Poisson workload (the port's poisson_workload and attach_prompt_tokens)
+    replayed through EngineService on ``params``, failure-free under
+    kevlarflow (the reference streams), then with instance 0 killed at
+    DRILL_FAIL_AT s under kevlarflow and under standard recovery. Returns
+    the bf16 attention kernel's launches."""
+    rps, launches = DRILL_RPS, 0
+    while True:
+        work = attach_prompt_tokens(poisson_workload(rps, **DRILL_WORKLOAD),
+                                    cfg.vocab_size, seed=0)
+        print(f"open-loop drill: {len(work)} requests at {rps} req/s over "
+              f"{DRILL_WORKLOAD['duration']} s, prompts "
+              f"{min(w.prompt_len for w in work)}-"
+              f"{max(w.prompt_len for w in work)} tokens (mean "
+              f"{statistics.mean(w.prompt_len for w in work):.1f}), outputs "
+              f"{min(w.max_new_tokens for w in work)}-"
+              f"{max(w.max_new_tokens for w in work)} (mean "
+              f"{statistics.mean(w.max_new_tokens for w in work):.1f})")
+        runs = {}
+        for label, mode, kill in (("failure-free", "kevlarflow", False),
+                                  ("kevlarflow", "kevlarflow", True),
+                                  ("standard", "standard", True)):
+            runs[label], n = counted(
+                "open-loop drill", f"the {label} run",
+                lambda: drill_run(cfg, params, mode, work, kill), PA, PA8,
+                cfg.n_layers)
+            launches += n
+            m = runs[label]
+            print(f"open-loop drill [{label}] [{card}]: " + json.dumps(
+                {k: m[k] for k in DRILL_KEYS if k in m}))
+            check(m["n"] == m["n_submitted"] == len(work),
+                  f"[{label}] {m['n']} of {len(work)} requests completed")
+            if label == "failure-free" and \
+                    m["ttft_p99"] > DRILL_TTFT_P99_LIMIT and rps == DRILL_RPS:
+                break
+        if len(runs) == 3:
+            break
+        print(f"open-loop drill: failure-free p99 TTFT "
+              f"{runs['failure-free']['ttft_p99']:.3f} s > "
+              f"{DRILL_TTFT_P99_LIMIT} s at {rps} req/s: queueing decides "
+              "the numbers; once more at half the rate")
+        rps /= 2
+    want = runs["failure-free"]["streams"]
+    for label in ("kevlarflow", "standard"):
+        check(runs[label]["streams"] == want,
+              f"[{label}] streams differ from the failure-free run")
+    kf, st = runs["kevlarflow"], runs["standard"]
+    check(kf["migrations"] >= 1, "kevlarflow: no request migrated")
+    check(kf["retries"] <= kf["mid_prefill_on_victim"]
+          and kf["restarted"] == kf["retries"],
+          f"kevlarflow: {kf['retries']} retries, but "
+          f"{kf['mid_prefill_on_victim']} requests were mid-prefill on the "
+          "victim")
+    check(kf["mttr_s"] >= 0 and st["mttr_s"] >= 0,
+          "an MTTR event is missing")
+    check(st["retries"] >= 1 and st["migrations"] == 0,
+          f"standard: {st['retries']} retries, {st['migrations']} migrations")
+    print(f"open-loop drill [{card}]: every stream of both failure runs "
+          f"equals the failure-free run; standard / kevlarflow: latency avg "
+          f"{st['latency_avg'] / kf['latency_avg']:.3f}x, p99 "
+          f"{st['latency_p99'] / kf['latency_p99']:.3f}x; TTFT avg "
+          f"{st['ttft_avg'] / kf['ttft_avg']:.3f}x, p99 "
+          f"{st['ttft_p99'] / kf['ttft_p99']:.3f}x; MTTR "
+          f"{st['mttr_s']:.3f} s vs {kf['mttr_s']:.3f} s. The standard "
+          f"run's stall is the set reload_penalty "
+          f"({drill_ecfg('standard').reload_penalty} s), not a measured "
+          "weight reload")
     return launches
 
 
-# -- 19. dense configs --------------------------------------------------------
+# -- 21. dense configs --------------------------------------------------------
 
 # (config, layers served: None = all) and the replication block bytes
 # /health must report
@@ -2066,7 +2444,7 @@ def dense_config_phases(card) -> dict:
     return out
 
 
-# -- 20.-22. MoE configs -----------------------------------------------------
+# -- 22.-24. MoE configs -----------------------------------------------------
 
 # (config, layers served at full width, whether its invariant phase runs):
 # the deepest depth at which every phase of the config passes on one H100
@@ -2355,8 +2733,8 @@ def moe_phases(card, dense_syncs, configs=MOE_CONFIGS) -> dict:
 
 def serving_phases(card: str) -> dict:
     """The bf16 path, the int8 + chunked-prefill path, the prefix-cache and
-    disaggregated paths, then the 8-instance fleet, all on the same
-    Llama-3.1-8B weights; then the other dense configs, the MoE configs and
+    disaggregated paths, the 8-instance fleet, decoupled init and the
+    open-loop failure drill, all on the same Llama-3.1-8B weights; then the other dense configs, the MoE configs and
     the hybrid config. Returns each kernel's launches on its paths."""
     cfg = get_config("llama3-8b")
     print(f"model {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
@@ -2375,7 +2753,12 @@ def serving_phases(card: str) -> dict:
                                 prefill_chunk=64),
         PA8, PA, "int8 + chunked prefill", prompts, params=params)[0]
     bf16 += shared_prefix_phases(card, cfg, params)
-    bf16 += fleet_phases(card, cfg, params)
+    fleet, cold_s = fleet_phases(card, cfg, params)
+    bf16 += fleet
+    phase("decoupled init")
+    bf16 += decoupled_init_phase(card, cfg, params, cold_s)
+    phase("open-loop failure drill")
+    bf16 += open_loop_drill_phase(card, cfg, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2388,7 +2771,7 @@ def serving_phases(card: str) -> dict:
             "paged_attention_int8": int8 + launches["paged_attention_int8"]}
 
 
-# -- 23.-25. hybrid config ----------------------------------------------------
+# -- 25.-27. hybrid config ----------------------------------------------------
 
 HYBRID_CONFIG = "recurrentgemma-9b"
 # the hybrid window phase: prompts of 2030 tokens (bucket 2048) and 48 new
@@ -2399,11 +2782,7 @@ HYBRID_WINDOW_PROMPT, HYBRID_WINDOW_NEW = 2030, 48
 
 def tree_bytes(tree) -> int:
     """Bytes of every tensor in a nested dict / list of tensors."""
-    if isinstance(tree, dict):
-        return sum(tree_bytes(v) for v in tree.values())
-    if isinstance(tree, list):
-        return sum(tree_bytes(v) for v in tree)
-    return tree.numel() * tree.element_size()
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
 def hybrid_step_bytes(cfg, params) -> int:
@@ -2679,7 +3058,7 @@ def hybrid_phases(card, dense_syncs) -> dict:
     return out
 
 
-# -- 26. mamba2 generation ----------------------------------------------------
+# -- 28. mamba2 generation ----------------------------------------------------
 
 @contextlib.contextmanager
 def plain_scan_calls():
@@ -2904,12 +3283,32 @@ def build_all():
     print(f"build phase: {time.perf_counter() - t0:.1f} s wall")
 
 
+def drill_only(card: str) -> int:
+    """``--drill-only``: phase 20 alone, on fresh Llama-3.1-8B weights made
+    as the full run makes them (seed 0), so that its numbers and its
+    run-start state stand beside those of the full run, which reaches the
+    drill late. Builds the one kernel the drill runs; prints no summary."""
+    phase("build")
+    PA.build()
+    print(f"built the bf16 paged_attention kernel in {PA.build_seconds} s")
+    cfg = get_config("llama3-8b")
+    params = api.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    phase("open-loop failure drill")
+    n = open_loop_drill_phase(card, cfg, params)
+    print(f"open-loop drill alone [{card}]: {n} paged_attention launches")
+    return 0
+
+
 def main() -> int:
     phase("device")
     card = device_line()
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == ["--drill-only"]:
+        return drill_only(card)
+    check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
 
     phase("build")
     ptxas = start_ptxas_report()

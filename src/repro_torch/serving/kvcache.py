@@ -205,6 +205,9 @@ class PagedKVPool:
         first = max(0, n_tokens - self.window) // self.page_size
         return (n_tokens - 1) // self.page_size - first + 1
 
+    def can_allocate(self, n_tokens: int) -> bool:
+        return self.n_free >= self.resident_blocks_for(n_tokens)
+
     def allocate(self, rid: int, n_tokens: int,
                  token_ids: Optional[Sequence[int]] = None) -> List[BlockRef]:
         """Allocate blocks; raises MemoryError if full (caller should evict
@@ -458,6 +461,10 @@ class PagedKVPool:
         blob = self._blob_replicas.pop((peer, rid), None)
         if blob is not None:
             self._blob_free.append(blob.slot)
+
+    def drop_all_replicas_from(self, peer: int):
+        for key in [k for k in self._replica_tables if k[0] == peer]:
+            self.drop_replica(*key)
 
     def evict_replicas_for_pressure(self, blocks_needed: int) -> int:
         """Paper: 'When memory pressure happens, KevlarFlow drops the
@@ -744,6 +751,11 @@ class PagedKVPool:
         assert self.real and self.quantized
         return (self.k[:, :, slot], self.k_scale[:, :, slot],
                 self.v[:, :, slot], self.v_scale[:, :, slot])
+
+    def copy_block_to(self, other: "PagedKVPool", src_slot: int,
+                      dst_slot: int):
+        """One block-replication message (the paper's yellow arrow)."""
+        self.copy_blocks_to(other, [src_slot], [dst_slot])
 
     def copy_blocks_to(self, other: "PagedKVPool",
                        src_slots: List[int], dst_slots: List[int]):

@@ -3,6 +3,7 @@
 
   python3 chip_smoke.py
   python3 chip_smoke.py --drill-only    # phase 20 alone (after 1)
+  python3 chip_smoke.py --train-only    # phases 29-31 alone (after 1-2)
 
 Phases (each raises, and the script exits non-zero, if its check fails):
 
@@ -201,14 +202,46 @@ Phases (each raises, and the script exits non-zero, if its check fails):
                 kernel prefill against the plain chunked form, and forward
                 at t against prefill(:t) plus one decode step; prefill and
                 decode-step profiles.
-  29. summary — the head-geometry timings, one JSON line of kernels, the
+  29. train mamba2-130m — full width and depth (128.7 M params, bf16,
+                torch.Generator seed 0) through training's train() with the
+                reference launcher's settings (batch 4 x 256, warmup 20,
+                100 steps, remat): every logged loss finite, the last below
+                the first; scan launches = steps x 2 forwards (remat) x 24
+                layers x 2 kernels, no plain forward scan, one SSDScan
+                backward per layer per step; the raw kernel wrapper refuses
+                an input that requires grad; in f32 at batch 2 x 512 (two
+                chunks) every param leaf's gradient through the kernel's
+                Function, at chunk 32 and at the config's 256, against the
+                model run on the plain chunked form at chunk 32 (largest
+                relative error per leaf 1e-3; at 256 the plain form loses
+                f32 digits, printed); a checkpoint saved and restored bit for
+                bit; one step profiled (wall, busy, idle share, launches,
+                the scan kernels' time, tok/s) and SSDScan's forward and
+                backward timed alone; then `python -m
+                repro_torch.launch.train --arch mamba2-130m --steps 20`.
+  30. train qwen1.5-0.5b — dense at full width (619.5 M params, bf16): 20
+                train() steps at batch 4 x 256 (loss finite and falling), a
+                step profile and the peak memory; the non-paged dense API
+                in f32: forward at t against prefill(:t) + one decode_step
+                (1e-4), decode_step_ragged against decode_step at equal
+                positions; then `python -m repro_torch.launch.serve --arch
+                qwen1.5-0.5b`: exit 0 and attention kernel launches.
+  31. train hubert-xlarge — the encoder at full width (1,259.7 M params,
+                bf16; f32 frame embeddings keep its activations f32, as
+                the reference's type promotion does): 10 train steps
+                (warmup 2) on one make_batch (4 x 256 frames), the masked
+                unit loss finite and falling; a step profile and the peak
+                memory.
+  32. summary — the head-geometry timings, one JSON line of kernels, the
                 card line, and the final {"ok": true, "device": ...} line.
 
 Each path's kernel launch counts are set to 0 just before the path and read
 just after; launches made to compare a kernel with its plain version are
 not counted. An attention call counts each CUDA kernel it launches: its
 split pass and, over a table wide enough for two splits, its merge pass; a
-scan call its C·Bᵀ pass and its scan.
+scan call its C·Bᵀ pass and its scan. The serve launcher of phase 30 runs
+qwen1.5-0.5b at its reduced size: its attention launches stand apart, as
+``launches_serve_launcher_reduced``, not in the full-width count.
 """
 from __future__ import annotations
 
@@ -219,9 +252,11 @@ import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -229,6 +264,7 @@ import warnings
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -238,7 +274,6 @@ from repro_torch.core.cluster import build_group  # noqa: E402
 from repro_torch.core.communicator import CommunicatorManager  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
 from repro_torch.kernels import paged_attention_int8 as PA8  # noqa: E402
-from repro_torch.kernels import ref as REF  # noqa: E402
 from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.kernels.ref import (paged_attention_int8_ref,  # noqa: E402
                                      paged_attention_ref, ssd_scan_ref)
@@ -255,6 +290,11 @@ from repro_torch.serving.request import (Request, RequestState,  # noqa: E402
 from repro_torch.serving.server import EngineService, serve  # noqa: E402
 from repro_torch.serving.workload import (attach_prompt_tokens,  # noqa: E402
                                           poisson_workload)
+from repro_torch.training import checkpoint as CK  # noqa: E402
+from repro_torch.training import data as TD  # noqa: E402
+from repro_torch.training import optimizer as TO  # noqa: E402
+from repro_torch.training import train_loop as TL  # noqa: E402
+from repro_torch.training import tree as TREE  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,         # dense tensor-core bf16
@@ -2040,15 +2080,6 @@ def fleet_phases(card, cfg, params) -> tuple:
 DECOUPLED_PROMPT = 200     # tokens: bucket 256, 13 pages written
 
 
-def tree_leaves(tree) -> list:
-    """Every tensor of a nested dict / list of tensors, in order."""
-    if isinstance(tree, dict):
-        return [t for v in tree.values() for t in tree_leaves(v)]
-    if isinstance(tree, list):
-        return [t for v in tree for t in tree_leaves(v)]
-    return [tree]
-
-
 def pipeline_step(cfg, ex, params):
     """What a re-formed pipeline runs first: one bucketed prefill of a
     DECOUPLED_PROMPT-token prompt into a fresh paged pool, then one decode
@@ -2114,7 +2145,7 @@ def decoupled_init_phase(card, cfg, params, cold_s) -> int:
     group = build_group(2, 4)
     for node in group.nodes:
         node.weights = params
-    leaves = tree_leaves(params)
+    leaves = TREE.leaves(params)
     ptrs = [t.data_ptr() for t in leaves]
     weight_bytes = tree_bytes(params)
     ecfg = EngineConfig(max_slots=8, max_seq=256)
@@ -2782,7 +2813,7 @@ HYBRID_WINDOW_PROMPT, HYBRID_WINDOW_NEW = 2030, 48
 
 def tree_bytes(tree) -> int:
     """Bytes of every tensor in a nested dict / list of tensors."""
-    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+    return sum(t.numel() * t.element_size() for t in TREE.leaves(tree))
 
 
 def hybrid_step_bytes(cfg, params) -> int:
@@ -3061,27 +3092,6 @@ def hybrid_phases(card, dense_syncs) -> dict:
 # -- 28. mamba2 generation ----------------------------------------------------
 
 @contextlib.contextmanager
-def plain_scan_calls():
-    """Counts calls of the scan's plain versions while the block runs:
-    ``ssd_scan_ref`` (where ``ops.ssd_scan`` would send a CPU tensor) and
-    ``ssm.ssd_chunked_plain`` (``ssd_chunked``'s CPU path)."""
-    calls = [0]
-    orig = REF.ssd_scan_ref, ssm.ssd_chunked_plain
-
-    def counted(fn):
-        def call(*args, **kw):
-            calls[0] += 1
-            return fn(*args, **kw)
-        return call
-
-    REF.ssd_scan_ref, ssm.ssd_chunked_plain = map(counted, orig)
-    try:
-        yield calls
-    finally:
-        REF.ssd_scan_ref, ssm.ssd_chunked_plain = orig
-
-
-@contextlib.contextmanager
 def scan_through_plain_form():
     """The model's scan runs the plain chunked form (for comparison only)."""
     orig = ssm.ssd_chunked
@@ -3179,17 +3189,16 @@ def mamba2_phase(card: str) -> int:
     for s, toks in batches.items():
         runs = []
         for _ in range(2):
-            SSD.launches = PA.launches = PA8.launches = 0
-            with plain_scan_calls() as plain:
-                out = generate(cfg, params, toks, MAMBA_NEW)
+            SSD.launches = PA.launches = PA8.launches = ssm.plain_scans = 0
+            out = generate(cfg, params, toks, MAMBA_NEW)
             n = SSD.launches
             print(f"[mamba2 {s}] ssd_scan launches: {n} (one prefill); plain "
-                  f"scans: {plain[0]}; paged attention: "
+                  f"scans: {ssm.plain_scans}; paged attention: "
                   f"{PA.launches + PA8.launches}")
             check(n == SSD.KERNELS_PER_CALL * cfg.n_layers,
                   f"{n} ssd_scan launches, not {SSD.KERNELS_PER_CALL} per "
                   f"layer ({cfg.n_layers} layers)")
-            check(plain[0] == 0, "a plain scan ran on the card's path")
+            check(ssm.plain_scans == 0, "a plain scan ran on the card's path")
             launches += n
             runs.append(out)
         (streams, logits, t_pre, t_dec), (streams2, _, t_pre2, t_dec2) = runs
@@ -3268,6 +3277,438 @@ def mamba2_phase(card: str) -> int:
     return launches
 
 
+# -- 29.-31. training -----------------------------------------------------------
+
+TRAIN_DATA = dict(batch_size=4, seq_len=256)   # the reference launcher's
+# largest relative error per gradient leaf, the kernel's Function at each
+# chunk against the model run on the plain chunked form at chunk 32 (the
+# kernel's sub-chunk). The comparator stays at 32 for the config's chunk of
+# 256 too: there the plain form loses f32 digits in every exp(cum_i -
+# cum_j) (see MAMBA_PREFILL_TOL), and the plain form at 256 against 32 is
+# printed for information.
+GRAD_CHECK_CHUNKS = (32, 256)
+GRAD_CHECK_TOL = 1e-3
+GRAD_CHECK_PLAIN_CHUNK = 32
+GRAD_CHECK_SHAPE = (2, 512)                    # batch, positions: 2 chunks
+# a remat step runs each layer's forward twice (the step, then the
+# backward's recompute); without remat once
+SCAN_FORWARDS_PER_LAYER = {True: 2, False: 1}
+
+
+def subprocess_python(*args, timeout=600) -> subprocess.CompletedProcess:
+    """``python -m ...`` from the repo root as a user runs it, the port on
+    the path; its output printed, indented."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", *args], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=timeout)
+    print(f"$ python -m {' '.join(args)}: exit {out.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for line in (out.stdout + out.stderr).strip().splitlines()[-12:]:
+        print(f"    {line}")
+    return out
+
+
+def train_history(card, cfg, history) -> list:
+    """Prints the logged records; checks every loss is finite and the last
+    below the first. Returns the losses."""
+    losses = [h["loss"] for h in history]
+    for h in history:
+        print(f"[train {cfg.name}] step {h['step']:4d}: loss "
+              f"{h['loss']:.4f}, grad_norm {h['grad_norm']:.4f}, lr "
+              f"{h['lr']:.3e}, {h['tok_per_s']:.1f} tok/s [{card}]")
+    check(all(math.isfinite(x) for x in losses), "a loss is not finite")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    return losses
+
+
+def step_profile(card, label, step, tokens, scan=False) -> dict:
+    """One train step (``step()``) profiled: wall (synchronised host clock),
+    device busy (torch.profiler's kernel time), idle share, kernel
+    launches, tokens per second; with ``scan``, the ssd_scan kernels'
+    device time in the step too."""
+    wall, busy, launches, kernels = profile_device(step, 2)
+    m = {"wall_ms": wall, "device_busy_ms": busy,
+         "device_idle_share": 1 - busy / wall if busy else None,
+         "kernel_launches": launches, "tok_per_s": tokens / wall * 1e3}
+    if scan:
+        m["ssd_scan_forward_kernel_ms"] = sum(
+            e.self_device_time_total for e in kernels
+            if "ssd_scan" in e.key) / 2 / 1e3
+    print(f"train step profile {label} [{card}]: " + json.dumps(m))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
+        print(f"  device ms/step {e.self_device_time_total / 2 / 1e3:8.3f}"
+              f"  launches/step {e.count / 2:7.1f}  {e.key[:90]}")
+    if not busy:
+        print(f"train step profile {label}: the profiler saw no device time "
+              "(device busy not measured)")
+    return m
+
+
+def peak_line(card, label):
+    card_gib = torch.cuda.get_device_properties(0).total_memory / 2**30
+    print(f"[{label}] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB allocated, {torch.cuda.max_memory_reserved() / 2**30:.2f} GiB"
+          f" reserved, of the card's {card_gib:.2f} GiB [{card}]")
+
+
+def param_count(cfg, params) -> str:
+    """The params counted from the tensors beside ``ModelConfig.n_params()``
+    (which leaves out the small leaves); checks the full width is there."""
+    n = sum(t.numel() for t in TREE.leaves(params))
+    check(abs(n - cfg.n_params()) < 0.01 * cfg.n_params(),
+          f"{n} params, not about {cfg.name}'s {cfg.n_params()}")
+    return (f"{n / 1e6:.2f} M params counted from the tensors "
+            f"(n_params() {cfg.n_params() / 1e6:.1f} M)")
+
+
+def free():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def f32_tree(tree):
+    return TREE.unflatten(tree, [t.float() for t in TREE.leaves(tree)])
+
+
+def gradients(cfg, params, batch, plain: bool) -> list:
+    """Every param leaf's gradient of ``api.loss`` (in the reference's leaf
+    order), the scan through the kernel's Function or, with ``plain``, the
+    plain chunked form."""
+    flat = [p.detach().requires_grad_() for p in TREE.leaves(params)]
+    tracked = TREE.unflatten(params, flat)
+    with (scan_through_plain_form() if plain else contextlib.nullcontext()):
+        loss = api.loss(cfg, tracked, batch)
+        grads = torch.autograd.grad(loss, flat)
+    return [g.detach() for g in grads]
+
+
+def grad_errors(cfg, paths, got, want, what, tol=None) -> float:
+    """Prints the largest relative error per leaf, max|got - want| /
+    max|want|; returns the worst."""
+    errs = {}
+    for path, g, w in zip(paths, got, want):
+        scale = float(w.abs().max())
+        check(scale > 0, f"{path}: zero gradient")
+        errs[path] = float((g - w).abs().max()) / scale
+    worst = max(errs.values())
+    print(f"[train {cfg.name}] f32 gradient, {what}: largest relative error "
+          "per leaf (max|diff| / max|want|) " + json.dumps(errs)
+          + f"; worst {worst:.3e}"
+          + (f" (limit {tol:g})" if tol is not None else ""))
+    return worst
+
+
+def wall_ms(fn, n=3) -> float:
+    """Host wall ms per call of ``fn``, synchronised, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def step_breakdown(card, cfg, params, batch):
+    """Wall ms of a train step's parts, each alone: the loss forward (no
+    grad), loss + gradient without remat, the gradient with remat, and the
+    AdamW update."""
+    flat = [p.detach().requires_grad_() for p in TREE.leaves(params)]
+    tracked = TREE.unflatten(params, flat)
+
+    def grad(remat):
+        loss = (checkpoint(api.loss, cfg, tracked, batch,
+                           use_reentrant=False) if remat
+                else api.loss(cfg, tracked, batch))
+        return torch.autograd.grad(loss, flat)
+
+    with torch.no_grad():
+        fwd = wall_ms(lambda: api.loss(cfg, params, batch))
+    g = TREE.unflatten(params, grad(False))
+    state = TO.init(params)
+    m = {"loss_forward_ms": fwd, "loss_and_grad_ms": wall_ms(
+        lambda: grad(False)), "loss_and_grad_remat_ms": wall_ms(
+        lambda: grad(True)), "adamw_update_ms": wall_ms(
+        lambda: TO.update(TO.OptimizerConfig(), params, g, state))}
+    print(f"train step parts {cfg.name} [{card}]: " + json.dumps(m))
+    return m
+
+
+def scan_backward_ms(shape) -> dict:
+    """At (b, s, h, p, n, chunk): device time of one ``SSDScan`` forward
+    (the kernel) and of its backward (the plain chunked form's VJP), each
+    by CUDA events over 10 eager calls."""
+    xdt, a, B, C, _ = ssd_case(shape, torch.bfloat16, seed=7)
+    chunk = shape[-1]
+    leaves = [t.detach().requires_grad_() for t in (xdt, a, B, C)]
+    y, hf = ssm.SSDScan.apply(*leaves, None, chunk)
+    gy, gh = torch.randn_like(y), torch.randn_like(hf)
+    fwd = events_ms(lambda: ssm.SSDScan.apply(xdt, a, B, C, None, chunk))
+
+    def backward():
+        y, hf = ssm.SSDScan.apply(*leaves, None, chunk)
+        torch.autograd.backward((y, hf), (gy, gh))
+
+    both = events_ms(backward)
+    return {"forward_kernel_ms": fwd, "backward_vjp_ms": both - fwd}
+
+
+def train_mamba2_phase(card: str) -> dict:
+    """Full-width mamba2-130m trained through ``train()`` with the
+    reference launcher's settings; the gradient through the scan kernel
+    held against the plain path's; a checkpoint round trip; a step
+    profile; the launcher. Returns the scan kernel's launches and times."""
+    cfg = get_config("mamba2-130m")
+    params = api.init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(0), device="cuda")
+    print(f"model {cfg.name}: {param_count(cfg, params)} ({cfg.dtype}, "
+          f"random weights from torch.Generator seed 0), {cfg.n_layers} "
+          f"layers, chunk {cfg.ssm_chunk}")
+    # the raw kernel wrapper refuses an input that requires grad
+    xdt, a, B, C, _ = ssd_case(SSD_REDUCED, torch.float32, seed=1)
+    try:
+        SSD.ssd_scan(xdt.requires_grad_(), a, B, C, chunk=SSD_REDUCED[-1])
+        check(False, "the raw ssd_scan wrapper took an input requiring grad")
+    except RuntimeError as err:
+        check("SSDScan" in str(err), f"unexpected error: {err}")
+    steps = 100
+    dcfg = TD.DataConfig(**TRAIN_DATA)
+    torch.cuda.synchronize()
+    SSD.launches = ssm.plain_scans = ssm.backward_scans = 0
+    t0 = time.perf_counter()
+    out = TL.train(cfg, dcfg, TO.OptimizerConfig(warmup_steps=20,
+                                                 total_steps=steps),
+                   TL.TrainerConfig(steps=steps, log_every=10),
+                   params=params, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain, back = SSD.launches, ssm.plain_scans, ssm.backward_scans
+    want = steps * SCAN_FORWARDS_PER_LAYER[True] * cfg.n_layers \
+        * SSD.KERNELS_PER_CALL
+    print(f"[train {cfg.name}] {steps} steps in {wall:.1f} s; ssd_scan "
+          f"launches {launches} (want {want}: {steps} steps x "
+          f"{SCAN_FORWARDS_PER_LAYER[True]} forwards (remat) x "
+          f"{cfg.n_layers} layers x {SSD.KERNELS_PER_CALL} kernels); plain "
+          f"forward scans {plain}; backward passes through SSDScan {back}")
+    check(launches == want, "ssd_scan launches on the training path")
+    check(plain == 0, "a plain forward scan ran on the card's training path")
+    check(back == steps * cfg.n_layers, "SSDScan backward passes")
+    train_history(card, cfg, out["history"])
+    params = out["params"]
+
+    # the gradient through the kernel against the plain path, f32
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = f32_tree(params)
+    b, s = GRAD_CHECK_SHAPE
+    tokens = torch.as_tensor(TD.make_batch(cfg, b, s, seed=2)["tokens"],
+                             device="cuda")
+    paths = ["/".join(p) for p, _ in TREE.leaves_with_paths(p32)]
+    def grads_at(chunk, plain):
+        c = dataclasses.replace(cfg32, ssm_chunk=chunk)
+        return gradients(c, p32, {"tokens": tokens}, plain=plain)
+
+    want = grads_at(GRAD_CHECK_PLAIN_CHUNK, plain=True)
+    for chunk in GRAD_CHECK_CHUNKS:
+        SSD.launches = 0
+        got = grads_at(chunk, plain=False)
+        check(SSD.launches == cfg.n_layers * SSD.KERNELS_PER_CALL,
+              "the gradient check's forward launches")
+        worst = grad_errors(cfg, paths, got, want,
+                            f"scan kernel's Function at chunk {chunk} vs the "
+                            f"plain chunked form at chunk "
+                            f"{GRAD_CHECK_PLAIN_CHUNK}, batch {b} x {s} "
+                            "positions", GRAD_CHECK_TOL)
+        check(math.isfinite(worst) and worst <= GRAD_CHECK_TOL,
+              "the gradient through the kernel differs from the plain "
+              f"path's at chunk {chunk}")
+    grad_errors(cfg, paths, grads_at(GRAD_CHECK_CHUNKS[-1], plain=True), want,
+                f"plain at chunk {GRAD_CHECK_CHUNKS[-1]} vs plain at chunk "
+                f"{GRAD_CHECK_PLAIN_CHUNK} (information)")
+    del p32, want, got
+
+    # checkpoint round trip
+    d = tempfile.mkdtemp(prefix="repro_torch_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        CK.save(d, {"params": params}, step=steps)
+        back_tree, step = CK.restore(d, {"params": params})
+        secs = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    same = all(a.dtype == b.dtype and a.device == b.device and torch.equal(
+        a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+        b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
+        for a, b in zip(TREE.leaves(params), TREE.leaves(back_tree)))
+    print(f"[train {cfg.name}] checkpoint: {size / 1e6:.1f} MB saved and "
+          f"restored in {secs:.2f} s, step {step}, every leaf equal bit for "
+          f"bit: {same}")
+    check(same and step == steps, "checkpoint round trip")
+    del back_tree
+
+    # one step profiled, and the scan's forward and backward alone
+    step_fn = TL.make_train_step(cfg, TO.OptimizerConfig(), q_chunk=256)
+    batch = {"tokens": torch.as_tensor(TD.make_batch(
+        cfg, dcfg.batch_size, dcfg.seq_len, seed=3)["tokens"], device="cuda")}
+    opt_state = TO.init(params)
+    prof = step_profile(card, f"{cfg.name} (batch {dcfg.batch_size} x "
+                        f"{dcfg.seq_len}, remat)",
+                        lambda: step_fn(params, opt_state, batch),
+                        dcfg.batch_size * dcfg.seq_len, scan=True)
+    step_breakdown(card, cfg, params, batch)
+    h, pdim, nst = cfg.ssm_n_heads, cfg.ssm_head_dim, cfg.ssm_state
+    times = {}
+    for label, shape in (("train", (dcfg.batch_size, dcfg.seq_len, h, pdim,
+                                    nst, cfg.ssm_chunk)),
+                         ("serving", SSD_SERVE)):
+        times[label] = scan_backward_ms(shape)
+        print(f"[train {cfg.name}] SSDScan at {label} shape {shape}: "
+              f"forward (kernel) {times[label]['forward_kernel_ms'] * 1e3:.2f}"
+              f" us, backward (plain chunked VJP) "
+              f"{times[label]['backward_vjp_ms'] * 1e3:.2f} us (CUDA events, "
+              f"eager) [{card}]")
+    per_step = times["train"]["backward_vjp_ms"] * cfg.n_layers
+    print(f"[train {cfg.name}] backward scans per step, elapsed (CUDA "
+          f"events, launch gaps included): {cfg.n_layers} x "
+          f"{times['train']['backward_vjp_ms']:.3f} ms = {per_step:.2f} ms, "
+          f"{100 * per_step / prof['wall_ms']:.1f}% of the step's wall")
+    del opt_state, batch, out, params
+    free()
+    res = subprocess_python("repro_torch.launch.train", "--arch", cfg.name,
+                            "--steps", "20")
+    check(res.returncode == 0 and "final loss:" in res.stdout,
+          "the train launcher failed")
+    return {"launches": launches, "backward_ms": times["serving"][
+        "backward_vjp_ms"], "forward_eager_ms": times["serving"][
+        "forward_kernel_ms"]}
+
+
+def train_qwen_phase(card: str) -> int:
+    """Dense qwen1.5-0.5b at full width: 20 train() steps, a step profile
+    and the peak memory; the non-paged dense API in f32; the serve
+    launcher. Returns the attention kernel's launches in the launcher."""
+    cfg = get_config("qwen1.5-0.5b")
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(0), device="cuda")
+    print(f"model {cfg.name}: {param_count(cfg, params)} ({cfg.dtype}, "
+          f"random weights from torch.Generator seed 0), {cfg.n_layers} "
+          "layers")
+    dcfg = TD.DataConfig(**TRAIN_DATA)
+    steps = 20
+    out = TL.train(cfg, dcfg, TO.OptimizerConfig(warmup_steps=5,
+                                                 total_steps=steps),
+                   TL.TrainerConfig(steps=steps, log_every=5),
+                   params=params, device="cuda")
+    train_history(card, cfg, out["history"])
+    params = out["params"]
+    del out
+    step_fn = TL.make_train_step(cfg, TO.OptimizerConfig(), q_chunk=256)
+    batch = {"tokens": torch.as_tensor(TD.make_batch(
+        cfg, dcfg.batch_size, dcfg.seq_len, seed=3)["tokens"], device="cuda")}
+    opt_state = TO.init(params)
+    step_profile(card, f"{cfg.name} (batch {dcfg.batch_size} x "
+                 f"{dcfg.seq_len}, remat)",
+                 lambda: step_fn(params, opt_state, batch),
+                 dcfg.batch_size * dcfg.seq_len)
+    peak_line(card, f"train {cfg.name}")
+    step_breakdown(card, cfg, params, batch)
+    del opt_state, batch
+
+    # the non-paged dense API, f32
+    cfg32 = dataclasses.replace(cfg, dtype="float32", kv_dtype="float32")
+    p32 = f32_tree(params)
+    del params
+    t = 64
+    toks = torch.as_tensor(np.random.default_rng(4).integers(
+        2, cfg.vocab_size, (2, t + 1)), dtype=torch.int32, device="cuda")
+    full = transformer.forward(cfg32, p32, toks)[:, t]
+    _, cache, pos = transformer.prefill(cfg32, p32, toks[:, :t],
+                                        capacity=t + 8)
+    dl, dcache = transformer.decode_step(cfg32, p32, toks[:, t], cache, pos)
+    err = float((dl - full).abs().max())
+    rl, rcache = transformer.decode_step_ragged(
+        cfg32, p32, toks[:, t], cache, torch.full((2,), pos, device="cuda"))
+    err_r = float((rl - dl).abs().max())
+    err_c = float((rcache["k"] - dcache["k"]).abs().max())
+    print(f"[{cfg.name}] f32 non-paged API: forward at t={t} vs prefill(:{t})"
+          f" + decode_step max_abs_err {err:.3e} (limit 1e-4, |logits| <= "
+          f"{float(full.abs().max()):.3f}); decode_step_ragged vs decode_step"
+          f" at equal positions: logits {err_r:.3e}, cache {err_c:.3e}")
+    check(math.isfinite(err) and err <= 1e-4,
+          "prefill + decode_step differs from forward")
+    check(err_r <= 1e-4 and err_c == 0.0,
+          "decode_step_ragged differs from decode_step")
+    del p32, cache, dcache, rcache, full
+    free()
+    res = subprocess_python("repro_torch.launch.serve", "--arch", cfg.name)
+    check(res.returncode == 0 and "served 12 requests" in res.stdout,
+          "the serve launcher failed")
+    n = int(res.stdout.split("paged_attention launches:")[-1].split()[0])
+    check(n > 0, "the serve launcher never launched the attention kernel")
+    return n
+
+
+def train_hubert_phase(card: str):
+    """The encoder at full width: 10 train steps on one batch (the masked
+    unit loss must fall), a step profile and the peak memory."""
+    cfg = get_config("hubert-xlarge")
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(0), device="cuda")
+    print(f"model {cfg.name}: {param_count(cfg, params)} ({cfg.dtype}, "
+          f"random weights from torch.Generator seed 0), {cfg.n_layers} "
+          "layers, bidirectional")
+    b, s = TRAIN_DATA["batch_size"], TRAIN_DATA["seq_len"]
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in TD.make_batch(cfg, b, s).items()}
+    step_fn = TL.make_train_step(cfg, TO.OptimizerConfig(
+        warmup_steps=2, total_steps=100), q_chunk=256)
+    opt_state = TO.init(params)
+    losses = []
+    for i in range(10):
+        params, opt_state, m = step_fn(params, opt_state, batch)
+        losses.append(float(m["loss"]))
+    print(f"[train {cfg.name}] masked unit loss over 10 steps on one batch "
+          f"({b} x {s} frames): " + ", ".join(f"{x:.4f}" for x in losses)
+          + f" [{card}]")
+    check(all(math.isfinite(x) for x in losses), "a loss is not finite")
+    check(losses[-1] < losses[0], "the masked unit loss did not fall")
+    step_profile(card, f"{cfg.name} (batch {b} x {s}, remat)",
+                 lambda: step_fn(params, opt_state, batch), b * s)
+    peak_line(card, f"train {cfg.name}")
+    del params, opt_state, batch
+    free()
+
+
+def train_phases(card: str) -> dict:
+    """Phases 29-31. Returns the scan kernel's launches on the training
+    path, the attention kernel's in the serve launcher's reduced-size run,
+    and the scan's backward time."""
+    phase("train mamba2-130m")
+    mamba = train_mamba2_phase(card)
+    phase("train qwen1.5-0.5b")
+    pa = train_qwen_phase(card)
+    phase("train hubert-xlarge")
+    train_hubert_phase(card)
+    print("internvl2-76b (70.6 B params) does not fit one card for training;"
+          " it runs reduced in the CPU tests")
+    return {"ssd_scan": mamba["launches"],
+            "serve_launcher_paged_attention": pa,
+            "ssd_scan_backward_ms": mamba["backward_ms"]}
+
+
+def train_only(card: str) -> int:
+    """``--train-only``: phases 1-2, then the training phases; no
+    summary."""
+    phase("build")
+    build_all()
+    out = train_phases(card)
+    print(f"training alone [{card}]: " + json.dumps(out))
+    return 0
+
+
 def build_all():
     """The three kernel libraries from source, one nvcc process per source,
     all started together."""
@@ -3308,6 +3749,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:] == ["--drill-only"]:
         return drill_only(card)
+    if sys.argv[1:] == ["--train-only"]:
+        return train_only(card)
     check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
 
     phase("build")
@@ -3332,8 +3775,18 @@ def main() -> int:
     launches = serving_phases(card)
     phase("mamba2 generation")
     launches["ssd_scan"] = mamba2_phase(card)
+    trained = train_phases(card)
+    launches["ssd_scan"] += trained["ssd_scan"]
     for e in entries:
         e["launches"] = launches[e["name"]]
+        if e["name"] == "ssd_scan":
+            # the gradient's backward: the plain chunked form's VJP
+            e["backward_ms"] = trained["ssd_scan_backward_ms"]
+        if e["name"] == "paged_attention":
+            # the serve launcher's run, at the reduced size its 3e8 rule
+            # gives qwen1.5-0.5b: kept apart from the full-width count
+            e["launches_serve_launcher_reduced"] = trained[
+                "serve_launcher_paged_attention"]
 
     phase("summary")
     print(f"head geometries [{card}]: " + json.dumps(geometry))

@@ -201,7 +201,8 @@ def shape_applicable(cfg: ModelConfig, shape: InputShape) -> Tuple[bool, str]:
     """Which (config x shape) pairs run: no decode shape for an encoder,
     and 500k-token decode only with a window or a recurrent state."""
     if cfg.is_encoder_only and shape.kind == "decode":
-        return False, "encoder-only: no decode step"
+        # the reference's reason, word for word
+        return False, "encoder-only: no decode step (DESIGN.md skip)"
     if shape.name == "long_500k" and cfg.has_kv_cache:
         if not (cfg.sliding_window or cfg.long_context_window
                 or cfg.arch_type in ("ssm", "hybrid")):

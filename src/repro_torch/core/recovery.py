@@ -21,7 +21,6 @@ from repro_torch.core.communicator import CommunicatorManager
 from repro_torch.core.failure import FailureEvent
 from repro_torch.core.replication import ReplicationManager
 from repro_torch.core.router import LoadBalancer
-from repro_torch.serving.kvcache import PagedKVPool
 from repro_torch.serving.request import RequestState
 
 MODE_KEVLARFLOW = "kevlarflow"
@@ -179,10 +178,7 @@ class RecoveryOrchestrator:
         old = next((n for n in inst.home_nodes
                     if n.node_id == pp.failed_node_id), None)
         sig = StageSignature(self.arch, pp.stage, inst.n_stages)
-        template = inst.home_nodes[pp.stage].kv_pool
-        new_node = VirtualNode(self._next_node_id, inst.instance_id, sig,
-                               PagedKVPool(template.n_blocks, template.page_size))
-        self._next_node_id += 1
+        new_node = self._new_node(inst, pp.stage, sig)
         new_node.last_heartbeat = now
         self.group.nodes.append(new_node)
         self.group.node_by_id[new_node.node_id] = new_node
@@ -198,6 +194,17 @@ class RecoveryOrchestrator:
             inst.state = InstanceState.HEALTHY
         if pp.event and pp.event.replaced_at < 0:
             pp.event.replaced_at = now
+
+    def _new_node(self, inst, stage: int, sig) -> VirtualNode:
+        """A freshly initialized node for ``inst``'s ``stage``, its pool
+        built like the one it replaces: real buffers of the same geometry,
+        dtype, device and quantization, or metadata only."""
+        template = inst.home_nodes[stage].kv_pool
+        node = VirtualNode(self._next_node_id, inst.instance_id, sig,
+                           template.empty_like())
+        self._next_node_id += 1
+        self.replication.watch(node)
+        return node
 
     # ------------------------------------------------------------------
     # standard fault behaviour path
@@ -228,10 +235,7 @@ class RecoveryOrchestrator:
         inst = self.group.instances[instance_id]
         # replace failed node with a freshly initialized one
         sig = StageSignature(self.arch, stage, inst.n_stages)
-        template = inst.home_nodes[stage].kv_pool
-        new_node = VirtualNode(self._next_node_id, instance_id, sig,
-                               PagedKVPool(template.n_blocks, template.page_size))
-        self._next_node_id += 1
+        new_node = self._new_node(inst, stage, sig)
         self.group.nodes.append(new_node)
         self.group.node_by_id[new_node.node_id] = new_node
         inst.stage_nodes[stage] = new_node

@@ -39,6 +39,35 @@ class ReplicationManager:
         self._budget_carry: Dict[int, float] = {}
         self.stats = {"blocks_replicated": 0, "replicas_dropped": 0,
                       "hosted_rejected": 0, "promotions": 0}
+        self._requests: Dict[int, object] = {}   # the last tick's lookup
+        for node in group.nodes:
+            self.watch(node)
+
+    def watch(self, node: VirtualNode):
+        """Follow pressure evictions on ``node``'s pool (real pools only):
+        a replica evicted there is no longer counted by its source."""
+        if node.kv_pool.real:
+            node.kv_pool.on_replica_evicted = self._replica_evicted
+
+    def _replica_evicted(self, peer: int, rid: int, logical):
+        """A target evicted the replica of ``peer``'s request ``rid``
+        (pages ``logical``): clear those blocks' flags on the source, and
+        lower the request's ``replicated_through`` to what is still
+        hosted, so a failure before the next tick restarts or resumes only
+        from promoted pages, never "seamlessly" from an empty table."""
+        source = self.group.node_by_id.get(peer)
+        if source is None:
+            return
+        gone = set(logical)
+        table = source.kv_pool.table(rid)
+        for block in table:
+            if block.logical_idx in gone:
+                block.replicated = False
+        req = self._requests.get(rid)
+        if req is not None:
+            req.replicated_through = min(
+                req.replicated_through,
+                sum(b.n_filled for b in table if b.replicated))
 
     # -- target selection ----------------------------------------------------
     def excluded_nodes(self) -> Set[int]:
@@ -95,6 +124,7 @@ class ReplicationManager:
         unreplicated blocks for its live requests, oldest request first."""
         if not self.cfg.enabled:
             return
+        self._requests = request_lookup
         for node in sorted(self.group.nodes, key=lambda n: n.node_id):
             if node.state != NodeState.HEALTHY:
                 continue
@@ -172,6 +202,11 @@ class ReplicationManager:
             block.replicated = True
             budget -= 1.0
             self.stats["blocks_replicated"] += 1
+        for i in copies:
+            # a page hosted afresh holds the primary's bytes from now on,
+            # whether or not an eviction cleared its block's flag
+            if by_idx[i].n_filled > 0:
+                by_idx[i].replicated = True
         order = sorted(copies)
         node.kv_pool.copy_blocks_to(target.kv_pool,
                                     [by_idx[i].slot for i in order],

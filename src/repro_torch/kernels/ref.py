@@ -70,14 +70,16 @@ def ssd_scan_ref(xdt, a, B, C, h0=None):
     """
     b, s, h, p = xdt.shape
     n = B.shape[-1]
-    state = torch.zeros((b, h, p, n), dtype=torch.float32,
-                        device=xdt.device) if h0 is None else h0.float()
+    # f32, or f64 kept (a float64 gradient check runs this in f64)
+    dt = torch.float64 if xdt.dtype == torch.float64 else torch.float32
+    state = torch.zeros((b, h, p, n), dtype=dt,
+                        device=xdt.device) if h0 is None else h0.to(dt)
     ys = []
     for t in range(s):
-        xt = xdt[:, t].float()                              # (b,h,p)
-        at = torch.exp(a[:, t].float())                     # (b,h)
-        Bt = B[:, t].float()                                # (b,n)
-        Ct = C[:, t].float()
+        xt = xdt[:, t].to(dt)                               # (b,h,p)
+        at = torch.exp(a[:, t].to(dt))                      # (b,h)
+        Bt = B[:, t].to(dt)                                 # (b,n)
+        Ct = C[:, t].to(dt)
         state = state * at[..., None, None] + \
             xt[..., None] * Bt[:, None, None, :]
         ys.append(torch.einsum("bhpn,bn->bhp", state, Ct))

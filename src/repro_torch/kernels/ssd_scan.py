@@ -136,8 +136,16 @@ def ssd_scan(xdt, a, B, C, chunk: int = 64, h0=None):
     wrapper's contract; the kernel itself steps over sub-chunks of 32) and
     ``n`` at most 256. Returns (y (b, s, h, p) f32, h_final
     (b, h, p, n) f32). Launches the CUDA kernels on the current stream;
-    raises on any input the kernels do not take and when a launch fails."""
+    raises on any input the kernels do not take and when a launch fails.
+
+    The outputs carry no autograd history, so with grad mode on an input
+    that requires grad raises: a gradient goes through
+    ``models.ssm.SSDScan``, whose forward calls this under no grad."""
     global launches
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (xdt, a, B, C, h0)):
+        raise RuntimeError("ssd_scan's CUDA kernel has no backward: take "
+                           "the gradient through models.ssm.SSDScan")
     _check(xdt, a, B, C, h0, chunk)
     lib = _library()
     p, n = xdt.shape[-1], B.shape[-1]

@@ -1,20 +1,17 @@
 """Unified model API: dispatch by ``cfg.arch_type``.
 
-Every family the port brings exposes:
+Every family exposes:
   init_params(cfg, generator, device)  -> params (layer-stacked)
-  forward(cfg, params, tokens)         -> logits
-  init_cache(cfg, batch, capacity)     -> decode state
-  prefill(cfg, params, tokens)         -> (last logits, cache, pos)
+  forward(cfg, params, **inputs)       -> logits (the train path)
+  init_cache(cfg, batch, capacity)     -> decode state (KV / recurrent / None)
+  prefill(cfg, params, **inputs)       -> (last logits, cache, pos)
   decode_step(cfg, params, token, cache, pos) -> (logits, cache)
+and ``loss(cfg, params, batch)`` is the scalar train loss of any family.
 
-So far those are the MoE family (Mixtral, DBRX), the SSM family (Mamba-2)
-and the hybrid family (RecurrentGemma; its params keep one dict per layer
-in a list, not layer-stacked). The dense family is served through the
-paged engine (``serving/engine.py``) and ``init_params`` initialises it;
-its non-paged model API, like the other families', is still to port and
-raises
-``NotImplementedError`` naming its ROADMAP.md item. ``loss`` and
-``next_token_loss`` come with training.
+The families: dense (Llama, Qwen, Yi, DeepSeek), MoE (Mixtral, DBRX), SSM
+(Mamba-2), hybrid (RecurrentGemma; its params keep one dict per layer in a
+list, not layer-stacked), VLM (InternVL2) and audio (HuBERT, encoder-only:
+no cache and no decode).
 
 ``decode_capacity(cfg, seq_len)`` centralizes the long-context policy:
 ring-buffer window for SWA / long-context dense variants, full-length cache
@@ -24,32 +21,30 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import hybrid, moe, ssm, transformer
+from repro_torch.models import encoder, hybrid, moe, ssm, transformer, vlm
 
-_FAMILIES = {"moe": moe, "ssm": ssm, "hybrid": hybrid}
-
-# families whose model API is still to port -> the ROADMAP.md item
-_TO_PORT = {
-    "dense": "Queue 1 item 13 (the non-paged dense model API)",
-    "vlm": "Queue 1 item 13 (models/vlm.py)",
-    "audio": "Queue 1 item 13 (models/encoder.py)",
+_FAMILIES = {
+    "dense": transformer,
+    "moe": moe,
+    "ssm": ssm,
+    "hybrid": hybrid,
+    "vlm": vlm,
+    "audio": encoder,
 }
 
 
 def family(cfg: ModelConfig):
-    if cfg.arch_type in _FAMILIES:
-        return _FAMILIES[cfg.arch_type]
-    raise NotImplementedError(
-        f"the port's model API does not run the {cfg.arch_type!r} family "
-        f"yet: ROADMAP.md {_TO_PORT[cfg.arch_type]}")
+    return _FAMILIES[cfg.arch_type]
 
 
 def init_params(cfg: ModelConfig, generator, device="cuda", dtype=None):
-    """Random params of any family the port serves or runs (the dense
-    family's init comes before its model API)."""
-    mod = transformer if cfg.arch_type == "dense" else family(cfg)
-    return mod.init_params(cfg, generator, device=device, dtype=dtype)
+    """Random params of any family from ``generator`` (which must live on
+    ``device``)."""
+    return family(cfg).init_params(cfg, generator, device=device,
+                                   dtype=dtype)
 
 
 def forward(cfg: ModelConfig, params, tokens, **kw):
@@ -85,20 +80,75 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device="cuda"):
 
 
 # --------------------------------------------------------------------------
+# train loss
+# --------------------------------------------------------------------------
+
+def _nll(logits, targets):
+    """Per-position negative log-likelihood of ``targets`` under
+    ``logits``, the log-softmax in f32."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+
+
+def next_token_loss(cfg, params, tokens, q_chunk: int = 1024):
+    """Causal LM loss over (B, S) tokens (inputs = tokens[:, :-1]); the MoE
+    family adds its load-balance aux loss."""
+    mod = family(cfg)
+    if cfg.arch_type == "moe":
+        logits, aux = mod.forward(cfg, params, tokens[:, :-1],
+                                  q_chunk=q_chunk, return_aux=True)
+    else:
+        logits = mod.forward(cfg, params, tokens[:, :-1], q_chunk=q_chunk)
+        aux = 0.0
+    return _nll(logits, tokens[:, 1:]).mean() + aux
+
+
+def loss(cfg: ModelConfig, params, batch: Dict[str, Any],
+         q_chunk: int = 1024):
+    """batch keys by family:
+      dense/moe/ssm/hybrid: tokens (B,S)
+      vlm:   tokens (B,S_txt), patch_embeds (B,P,d)
+      audio: frame_embeds (B,S,d), targets (B,S), mask (B,S)
+    """
+    if cfg.arch_type == "audio":
+        return encoder.masked_unit_loss(cfg, params, batch["frame_embeds"],
+                                        batch["targets"], batch["mask"])
+    if cfg.arch_type == "vlm":
+        patches = batch.get("patch_embeds")
+        logits = vlm.forward(cfg, params, batch["tokens"], patches,
+                             q_chunk=q_chunk)
+        npatch = 0 if patches is None else patches.shape[1]
+        # predict text tokens only (shift within the text segment)
+        text_logits = logits[:, npatch:-1] if npatch else logits[:, :-1]
+        return _nll(text_logits, batch["tokens"][:, 1:]).mean()
+    return next_token_loss(cfg, params, batch["tokens"], q_chunk=q_chunk)
+
+
+# --------------------------------------------------------------------------
 # prefill / decode
 # --------------------------------------------------------------------------
 
 def prefill(cfg: ModelConfig, params, batch: Dict[str, Any],
             seq_budget: Optional[int] = None, q_chunk: int = 1024):
     """Returns (last-token logits, cache, pos). ``batch["tokens"]``: (B, S)
-    integer tensor."""
+    integer tensor (and ``patch_embeds`` for the VLM)."""
     mod = family(cfg)
+    if cfg.arch_type == "audio":
+        raise ValueError("encoder-only arch has no prefill/decode")
     if cfg.arch_type == "ssm":
         return mod.prefill(cfg, params, batch["tokens"], chunk=cfg.ssm_chunk)
     s = batch["tokens"].shape[1]
     total = seq_budget or s
     window = decode_window(cfg, total)
     cap = window if window else total
+    if cfg.arch_type == "vlm":
+        return mod.prefill(cfg, params, batch["tokens"],
+                           batch.get("patch_embeds"), capacity=cap,
+                           q_chunk=q_chunk)
+    if cfg.arch_type == "hybrid":
+        return mod.prefill(cfg, params, batch["tokens"],
+                           capacity=cap if cfg.sliding_window else 0,
+                           q_chunk=q_chunk)
     # dense / moe: a long-context window overrides full attention; a
     # native sliding window is the model's own
     wo = window if (window and not cfg.sliding_window) else None
@@ -108,7 +158,7 @@ def prefill(cfg: ModelConfig, params, batch: Dict[str, Any],
 
 def decode_step(cfg: ModelConfig, params, token, cache, pos, seq_len: int):
     mod = family(cfg)
-    if cfg.arch_type == "ssm":
+    if cfg.arch_type in ("ssm", "hybrid"):
         return mod.decode_step(cfg, params, token, cache, pos)
     return mod.decode_step(cfg, params, token, cache, pos,
                            window=decode_window(cfg, seq_len))

@@ -141,11 +141,12 @@ def rglru_scan(p, x, h0=None, g=None, rows: int = 0):
     an unchunked run."""
     log_a, b = _rglru_gates(p, x, g, rows)
     a = torch.exp(log_a)
-    h = torch.empty_like(b)
     cur = torch.zeros_like(b[:, 0]) if h0 is None else h0.float()
+    steps = []
     for t in range(b.shape[1]):
-        cur = torch.addcmul(b[:, t], a[:, t], cur, out=h[:, t])
-    return h, h[:, -1]
+        cur = torch.addcmul(b[:, t], a[:, t], cur)
+        steps.append(cur)
+    return torch.stack(steps, dim=1), cur
 
 
 def rglru_step(p, x, h, g=None):

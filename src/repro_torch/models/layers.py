@@ -74,7 +74,12 @@ def row_matmul(x, w, rows: int = 0):
     count, so a row's bits depend on how many rows share the product:
     fixed-size blocks make them depend on the row alone. A prefill whose
     row count is a multiple of ``rows`` then gives every row the bits a
-    chunked prefill of ``rows``-row chunks gives it."""
+    chunked prefill of ``rows``-row chunks gives it. Operands of two
+    dtypes compute in the wider one, as the reference's type promotion
+    does (f32 frame embeddings through a bf16 encoder stay f32)."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
     n = x[..., 0].numel()
     if not rows or n <= rows:
         return x @ w
@@ -132,10 +137,12 @@ def attention(q, k, v, *, causal: bool, window: int = 0,
     """
     b, sq, h, d = q.shape
     skv = k.shape[1]
+    kv_dtype = k.dtype
     k = _expand_kv(k, h)
     v = _expand_kv(v, h)
     scale = 1.0 / math.sqrt(d)
-    # q is pre-scaled in f32 and cast back; the products then accumulate in
+    # q is pre-scaled in f32 and cast back, then (as the reference's
+    # einsum does) cast to the cache's dtype; the products accumulate in
     # f32 over operands in their storage dtype (exact upcasts)
     qt = (q.transpose(1, 2).float() * scale).to(q.dtype)   # (B,H,Sq,D)
     kt = k.transpose(1, 2).float()                          # (B,H,Skv,D)
@@ -143,7 +150,7 @@ def attention(q, k, v, *, causal: bool, window: int = 0,
     kv_pos = torch.arange(skv, dtype=torch.int32, device=q.device)
 
     def chunk_attn(q_c, q_pos):
-        s = q_c.float() @ kt.transpose(-1, -2)              # (B,H,c,Skv)
+        s = q_c.to(kv_dtype).float() @ kt.transpose(-1, -2)  # (B,H,c,Skv)
         mask = torch.ones((q_pos.shape[0], skv), dtype=torch.bool,
                           device=q.device)
         if causal:
@@ -161,7 +168,9 @@ def attention(q, k, v, *, causal: bool, window: int = 0,
         else:
             mask = mask[None, None]
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-        m = s.amax(dim=-1, keepdim=True)
+        # the shift takes no gradient (the reference's stop_gradient): the
+        # normalised output does not depend on it
+        m = s.amax(dim=-1, keepdim=True).detach()
         p = torch.exp(s - m)
         o = p.to(vt.dtype).float() @ vt.float()
         return o / (p.sum(dim=-1, keepdim=True) + 1e-30)

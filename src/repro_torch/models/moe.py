@@ -145,10 +145,13 @@ def expert_mix(experts, x32, weights, rows: int = 0):
     x32: (T, d) f32; weights: (T, E) f32 combine weights. Every expert
     runs over all T rows (fixed shapes), in products of ``rows`` rows
     (``L.row_matmul``); bf16 expert matrices are upcast one expert at a
-    time into one f32 buffer per shape."""
+    time into one f32 buffer per shape (under autograd, which needs each
+    upcast kept for the backward, into one fresh f32 copy per expert: the
+    same values)."""
     w_gate, w_up, w_down = (experts["w_gate"], experts["w_up"],
                             experts["w_down"])
-    upcast = w_gate.dtype != torch.float32
+    upcast = w_gate.dtype != torch.float32 and not (
+        torch.is_grad_enabled() and w_gate.requires_grad)
     if upcast:
         bufs = [torch.empty(w.shape[1:], dtype=torch.float32,
                             device=w.device) for w in (w_gate, w_up, w_down)]
@@ -158,7 +161,7 @@ def expert_mix(experts, x32, weights, rows: int = 0):
             wg, wu, wd = (buf.copy_(w[e]) for buf, w in
                           zip(bufs, (w_gate, w_up, w_down)))
         else:
-            wg, wu, wd = w_gate[e], w_up[e], w_down[e]
+            wg, wu, wd = (w[e].float() for w in (w_gate, w_up, w_down))
         h = F.silu(L.row_matmul(x32, wg, rows)) \
             * L.row_matmul(x32, wu, rows)
         out += weights[:, e:e + 1] * L.row_matmul(h, wd, rows)
@@ -242,10 +245,9 @@ def forward(cfg, params, tokens, *, window_override: Optional[int] = None,
         else cfg.sliding_window
     q_chunk = min(q_chunk, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        x, a, _ = _block(cfg, layer_params(params["layers"], i), x,
-                         positions, window=window, q_chunk=q_chunk,
-                         capacity_factor=capacity_factor)
+    for p in T.unstacked(params["layers"]):
+        x, a, _ = _block(cfg, p, x, positions, window=window,
+                         q_chunk=q_chunk, capacity_factor=capacity_factor)
         aux = aux + a
     x = L.rms_norm(x, params["embed"]["norm_f"], cfg.norm_eps)
     logits = L.unembed(params["embed"], cfg, x)

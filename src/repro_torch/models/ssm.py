@@ -2,10 +2,14 @@
 chunked algorithm [arXiv:2405.21060].
 
 Forward and prefill run the chunked SSD scan: on the card through the
-hand-written CUDA kernels (``kernels/ssd_scan.py``, one call per layer), on
-the CPU through the plain chunked form in torch ops. Decode runs the O(1)
-recurrent form. The recurrent state, not a KV cache, is this family's
-decode state. Params keep the reference's layer-stacked layout.
+hand-written CUDA kernels (``kernels/ssd_scan.py``, one call per layer,
+wrapped in the autograd Function ``SSDScan``), on the CPU through the plain
+chunked form in torch ops. Training takes its gradient through ``SSDScan``:
+the forward is the kernel, the backward the vector-Jacobian product of the
+plain chunked form on the saved inputs (the reference trains through
+autodiff of its jnp chunked form; its Pallas kernel has no backward). Decode
+runs the O(1) recurrent form. The recurrent state, not a KV cache, is this
+family's decode state. Params keep the reference's layer-stacked layout.
 """
 from __future__ import annotations
 
@@ -16,12 +20,18 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import layer_params
+from repro_torch.models.transformer import layer_params, unstacked
 
 # the decode cache keeps the conv state in bf16 whatever the params' dtype,
 # as the reference does; a comparison may set it to float32 to take that
 # rounding out of a forward-vs-decode check
 CONV_STATE_DTYPE = torch.bfloat16
+
+# forward scans run by a plain version instead of the kernel (a CPU
+# tensor's), and backward passes through ``SSDScan``, each counted where it
+# runs; a run sets them to 0 and reads them back
+plain_scans = 0
+backward_scans = 0
 
 
 # --------------------------------------------------------------------------
@@ -83,6 +93,12 @@ def _segsum(a):
     return torch.where(mask, diff, -math.inf)
 
 
+def _wide(t):
+    """f32, or f64 kept (a float64 gradient check runs the plain forms in
+    f64)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def _pad_to_chunk(xdt, a, B, C, chunk):
     """chunk = min(chunk, s), then pad the sequence to a multiple of it.
     Padded steps have a = 0 (no decay) and x = B = C = 0: they leave the
@@ -101,16 +117,17 @@ def _pad_to_chunk(xdt, a, B, C, chunk):
 def ssd_chunked_plain(xdt, a, B, C, h0=None, chunk: int = 256):
     """The chunked SSD scan in plain torch ops, on any device: the reference
     ``ssd_chunked`` line for line. The CPU path of ``ssd_chunked``; on the
-    card only the comparisons with the kernel use it."""
+    card ``SSDScan``'s backward differentiates it, and the comparisons with
+    the kernel use it."""
     s_orig = xdt.shape[1]
     xdt, a, B, C, chunk = _pad_to_chunk(xdt, a, B, C, chunk)
     b, s, h, p = xdt.shape
     n = B.shape[-1]
     c = s // chunk
-    xc = xdt.reshape(b, c, chunk, h, p).float()
+    xc = _wide(xdt.reshape(b, c, chunk, h, p))
     ac = a.reshape(b, c, chunk, h).permute(0, 3, 1, 2)     # (b,h,c,q)
-    Bc = B.reshape(b, c, chunk, n).float()
-    Cc = C.reshape(b, c, chunk, n).float()
+    Bc = _wide(B.reshape(b, c, chunk, n))
+    Cc = _wide(C.reshape(b, c, chunk, n))
 
     a_cum = torch.cumsum(ac, dim=-1)                        # (b,h,c,q)
     Lmat = torch.exp(_segsum(ac))                           # (b,h,c,q,q)
@@ -124,8 +141,8 @@ def ssd_chunked_plain(xdt, a, B, C, h0=None, chunk: int = 256):
 
     # inter-chunk recurrence; keep the state ENTERING each chunk
     chunk_decay = torch.exp(a_cum[..., -1])                 # (b,h,c)
-    state = torch.zeros((b, h, p, n), dtype=torch.float32,
-                        device=xdt.device) if h0 is None else h0.float()
+    state = torch.zeros((b, h, p, n), dtype=xc.dtype,
+                        device=xdt.device) if h0 is None else _wide(h0)
     states_in = []
     for ci in range(c):
         states_in.append(state)
@@ -141,6 +158,41 @@ def ssd_chunked_plain(xdt, a, B, C, h0=None, chunk: int = 256):
     return y, state
 
 
+class SSDScan(torch.autograd.Function):
+    """The ``ssd_scan`` kernel (through ``ops.ssd_scan``) with a gradient.
+
+    ``forward`` launches the kernel (on a CPU tensor, its plain version);
+    ``backward`` recomputes the plain chunked form on the saved inputs
+    under autograd and returns its vector-Jacobian product for xdt, a, B,
+    C and h0, each in its input's dtype. ``apply(xdt, a, B, C, h0, chunk)``
+    with ``s`` a multiple of ``chunk`` -> (y, h_final)."""
+
+    @staticmethod
+    def forward(ctx, xdt, a, B, C, h0, chunk):
+        global plain_scans
+        if xdt.device.type == "cpu":                # ops' plain version
+            plain_scans += 1
+        ctx.chunk = chunk
+        ctx.save_for_backward(xdt, a, B, C, h0)
+        return ops.ssd_scan(xdt, a, B, C, chunk=chunk, h0=h0)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        global backward_scans
+        backward_scans += 1
+        saved = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:5]
+        with torch.enable_grad():
+            leaves = [None if t is None else t.detach().requires_grad_(n)
+                      for t, n in zip(saved, needs)]
+            y, hf = ssd_chunked_plain(*leaves, ctx.chunk)
+            wanted = [t for t, n in zip(leaves, needs) if n]
+            grads = iter(torch.autograd.grad((y, hf), wanted, (gy, gh),
+                                             allow_unused=True))
+        out = [next(grads) if n else None for n in needs]
+        return (*out, None)
+
+
 def ssd_chunked(xdt, a, B, C, h0=None, chunk: int = 256):
     """Chunked SSD scan.
 
@@ -151,14 +203,16 @@ def ssd_chunked(xdt, a, B, C, h0=None, chunk: int = 256):
     Returns (y (b,s,h,p) f32, h_final (b,h,p,n) f32).
 
     A CPU tensor runs ``ssd_chunked_plain``; any other goes to the
-    ``ssd_scan`` kernel through ``ops.ssd_scan`` (which launches or raises),
-    on the same padded sequence.
+    ``ssd_scan`` kernel through ``SSDScan`` (which launches or raises, and
+    carries the gradient), on the same padded sequence.
     """
+    global plain_scans
     if xdt.device.type == "cpu":
+        plain_scans += 1
         return ssd_chunked_plain(xdt, a, B, C, h0, chunk)
     s = xdt.shape[1]
     xdt, a, B, C, chunk = _pad_to_chunk(xdt, a, B, C, chunk)
-    y, h_final = ops.ssd_scan(xdt, a, B, C, chunk=chunk, h0=h0)
+    y, h_final = SSDScan.apply(xdt, a, B, C, h0, chunk)
     return y[:, :s], h_final
 
 
@@ -247,9 +301,8 @@ def ssd_decode_block(cfg, p, x, conv_state, ssm_state):
 def forward(cfg, params, tokens, *, chunk=None, **_):
     """Logits (B, S, vocab) in the params' dtype."""
     x = L.embed(params["embed"], tokens)
-    for i in range(cfg.n_layers):
-        x, _, _ = ssd_block(cfg, layer_params(params["layers"], i), x,
-                            chunk=chunk)
+    for p in unstacked(params["layers"]):
+        x, _, _ = ssd_block(cfg, p, x, chunk=chunk)
     x = L.rms_norm(x, params["embed"]["norm_f"], cfg.norm_eps)
     return L.unembed(params["embed"], cfg, x)
 

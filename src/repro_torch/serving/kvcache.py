@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -93,9 +93,21 @@ class PagedKVPool:
                  dtype=torch.bfloat16, blob_words: int = 0, n_blobs: int = 0,
                  window: int = 0, device="cuda", quantized: bool = False,
                  prefix_cache: bool = False, arch_key: str = ""):
+        # the constructor's arguments, so ``empty_like`` builds a pool of
+        # the same kind (geometry, dtype, device, quantization, blobs)
+        self._spec = dict(n_blocks=n_blocks, page_size=page_size,
+                          n_layers=n_layers, n_kv_heads=n_kv_heads,
+                          head_dim=head_dim, real=real, dtype=dtype,
+                          blob_words=blob_words, n_blobs=n_blobs,
+                          window=window, device=device, quantized=quantized,
+                          prefix_cache=prefix_cache, arch_key=arch_key)
         self.n_blocks = n_blocks
         self.page_size = page_size
         self.real = real
+        # called as (peer, rid, logical page indices) when pressure evicts a
+        # real pool's hosted replica, so the peer's flags can follow
+        self.on_replica_evicted: Optional[
+            Callable[[int, int, List[int]], None]] = None
         self.quantized = quantized
         # sliding-window ring view: when window > 0 each request keeps only
         # the blocks that can still fall inside the attention window; blocks
@@ -149,6 +161,12 @@ class PagedKVPool:
                     self.blob_scales = torch.ones(
                         (n_blobs, 1), dtype=SCALE_DTYPE, device=device)
 
+    def empty_like(self) -> "PagedKVPool":
+        """A new, empty pool built as this one was: real buffers of the
+        same geometry, dtype, device and quantization (and blob store), or
+        metadata only."""
+        return PagedKVPool(**self._spec)
+
     @property
     def block_nbytes(self) -> int:
         """Bytes of one replication message (k+v, all layers; an int8 pool
@@ -177,6 +195,9 @@ class PagedKVPool:
     @property
     def n_used(self) -> int:
         return self.n_blocks - self.n_free
+
+    def utilization(self) -> float:
+        return self.n_used / self.n_blocks
 
     def replica_blocks_used(self) -> int:
         return sum(len(t) for t in self._replica_tables.values())
@@ -469,14 +490,19 @@ class PagedKVPool:
     def evict_replicas_for_pressure(self, blocks_needed: int) -> int:
         """Paper: 'When memory pressure happens, KevlarFlow drops the
         replicated KV cache'. Evict whole replica tables until enough
-        blocks are free. Returns blocks freed."""
+        blocks are free. Returns blocks freed. On a real pool each evicted
+        table is reported to ``on_replica_evicted``, so its source stops
+        counting those blocks as replicated (a metadata pool keeps the
+        reference's behaviour: the source's flags stay set)."""
         freed = 0
         for key in list(self._replica_tables):
             if self.n_free >= blocks_needed:
                 break
-            n = len(self._replica_tables[key])
+            logical = [ref.logical_idx for ref in self._replica_tables[key]]
             self.drop_replica(*key)
-            freed += n
+            freed += len(logical)
+            if self.real and self.on_replica_evicted is not None:
+                self.on_replica_evicted(*key, logical)
         return freed
 
     def evict_blob_replicas_for_pressure(self) -> int:
@@ -717,6 +743,11 @@ class PagedKVPool:
     # -- real-buffer block IO (bit-exact data movement) -----------------------
     def _index(self, slots) -> torch.Tensor:
         return torch.as_tensor(slots, dtype=torch.long, device=self.k.device)
+
+    def write_block(self, slot: int, k_block, v_block):
+        """k_block / v_block: (L, K, page, D) — quantized on write on an
+        int8 pool."""
+        self.write_blocks([slot], k_block[:, :, None], v_block[:, :, None])
 
     def write_blocks(self, slots: List[int], k_blocks, v_blocks):
         """Bulk write (admission path): k/v_blocks (L, K, n, page, D) into

@@ -28,21 +28,24 @@ from repro_torch.serving.request import Request  # noqa: E402
 NEW = ["yi-9b", "qwen1.5-0.5b", "qwen1.5-32b", "deepseek-67b"]
 MOE = ["mixtral-8x7b", "dbrx-132b"]
 HYBRID = ["recurrentgemma-9b"]
+TRAIN = ["internvl2-76b", "hubert-xlarge"]     # the VLM and the encoder
 F32 = dict(dtype="float32", kv_dtype="float32")
 
 
 def test_registry_holds_the_dense_family_and_mamba2():
+    """Every config of the reference is registered (the VLM and the audio
+    encoder since the training slice), in the reference's order, and
+    ``ASSIGNED`` is the reference's list of 10."""
     assert TC.list_configs() == sorted(
-        NEW + MOE + HYBRID + ["llama3-8b", "mamba2-130m"])
-    assert set(TC.list_configs()) <= set(JC.list_configs())
-    # the reference's other configs come with their families
-    for name in set(JC.list_configs()) - set(TC.list_configs()):
-        with pytest.raises(KeyError, match="unknown arch"):
-            TC.get_config(name)
+        NEW + MOE + HYBRID + TRAIN + ["llama3-8b", "mamba2-130m"])
+    assert TC.list_configs() == JC.list_configs()
+    assert TC.ASSIGNED == JC.ASSIGNED and len(TC.ASSIGNED) == 10
+    with pytest.raises(KeyError, match="unknown arch"):
+        TC.get_config("gpt-2")
 
 
 @pytest.mark.parametrize("name", NEW + MOE + ["llama3-8b", "mamba2-130m"]
-                         + HYBRID)
+                         + HYBRID + TRAIN)
 def test_config_equals_reference_field_for_field(name):
     t, j = TC.get_config(name), JC.get_config(name)
     assert dataclasses.asdict(t) == dataclasses.asdict(j)

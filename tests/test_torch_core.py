@@ -642,3 +642,111 @@ def test_replication_under_pressure_promotes_only_primary_bytes():
                            primary[r.logical_idx])
     for slot, want in own_bytes.items():
         assert torch.equal(_page(target.kv_pool, slot), want)
+
+
+# -- recovery on real CPU pools ------------------------------------------------
+
+def _recovery(pkg):
+    return importlib.import_module(f"{pkg}.core.recovery")
+
+
+@pytest.mark.parametrize("mode", ["kevlarflow", "standard"])
+def test_replacement_node_gets_a_real_pool_like_its_template(mode):
+    """Node 1 (instance 0, stage 1) of a real-pool group fails and is
+    replaced: in the background (kevlarflow, ``_complete_replacement``) or
+    when its instance comes back (standard, ``_complete_offline_return``).
+    The new node's pool is real, with the template's geometry, dtype and
+    device; one tick copies bytes both ways, with the new node as source
+    and as target; and after the new node fails, its promoted replica
+    holds the primary's K/V bit for bit."""
+    gen = torch.Generator().manual_seed(2)
+    g = T.cluster.build_group(2, 2, kv_blocks_per_node=16, page_size=4,
+                              real_pools=True, pool_kw=POOL_KW)
+    mgr = T.replication.ReplicationManager(
+        g, T.replication.ReplicationConfig(blocks_per_second=1000))
+    rec = _recovery("repro_torch").RecoveryOrchestrator(
+        g, T.communicator.CommunicatorManager(), T.router.LoadBalancer(g),
+        mgr, mode=mode)
+    old, peer = g.nodes[1], g.nodes[3]
+    template = old.kv_pool
+    old.fail()
+    rec.on_node_failure_detected(old.node_id, 0.0)
+    rec.tick(1e6)                    # past the re-form and the full re-init
+    new = g.instances[0].home_nodes[1]
+    assert new is not old and g.instances[0].stage_nodes[1] is new
+    pool = new.kv_pool
+    assert pool.real and not pool.quantized
+    assert pool.k.shape == template.k.shape and pool.k.dtype == torch.float32
+    assert pool.k.device.type == "cpu" and pool.n_free == 16
+    assert mgr.target_for(new) is peer and mgr.target_for(peer) is new
+    reqs = {}
+    for node, rid in ((new, 1), (peer, 2)):
+        _write_random(node.kv_pool, node.kv_pool.allocate(rid, 8), gen)
+        reqs[rid] = T.request.Request(rid=rid, prompt_len=8,
+                                      max_new_tokens=4, arrival_time=0.0)
+    mgr.tick(0.1, reqs)
+    for src, dst, rid in ((new, peer, 1), (peer, new, 2)):
+        hosted = dst.kv_pool.replica_table(src.node_id, rid)
+        primary = src.kv_pool.table(rid)
+        assert len(hosted) == 2 and reqs[rid].replicated_through == 8
+        for h, p in zip(hosted, primary):
+            assert torch.equal(_page(dst.kv_pool, h.slot),
+                               _page(src.kv_pool, p.slot))
+    want = [_page(pool, p.slot) for p in pool.table(1)]
+    new.fail()
+    promoted = mgr.promote(new.node_id, mgr.target_for_failed(new), 1)
+    assert [r.logical_idx for r in promoted] == [0, 1]
+    for r, page in zip(promoted, want):
+        assert torch.equal(_page(peer.kv_pool, r.slot), page)
+
+
+@pytest.mark.parametrize("real", [True, False])
+def test_evicted_replica_is_no_longer_counted_by_its_source(real):
+    """The target of a replicated 10-token request evicts that replica for
+    its own 24-token request, and the source fails before the next tick.
+    On real pools the source's blocks lose their flags at the eviction,
+    ``replicated_through`` drops to 0, and the re-form resumes the request
+    partially with nothing promoted (never a "seamless" resume with an
+    empty replica table). Metadata pools keep the reference's behaviour,
+    stats for stats with it."""
+    stats = []
+    for pkg in (("repro_torch",) if real else PACKAGES):
+        P = _load(pkg)
+        g = P.cluster.build_group(2, 2, kv_blocks_per_node=8, page_size=4,
+                                  real_pools=real,
+                                  pool_kw=POOL_KW if real else None)
+        mgr = P.replication.ReplicationManager(
+            g, P.replication.ReplicationConfig(blocks_per_second=1000))
+        rec = _recovery(pkg).RecoveryOrchestrator(
+            g, P.communicator.CommunicatorManager(), P.router.LoadBalancer(g),
+            mgr, mode="kevlarflow")
+        node, target = g.nodes[1], g.nodes[3]
+        node.kv_pool.allocate(1, 10)
+        req = P.request.Request(rid=1, prompt_len=10, max_new_tokens=8,
+                                arrival_time=0.0)
+        req.state = P.request.RequestState.DECODE
+        req.instance_id = 0
+        g.instances[0].running.append(req)
+        mgr.tick(0.1, {1: req})
+        assert req.replicated_through == 10
+        assert len(target.kv_pool.replica_table(node.node_id, 1)) == 3
+        need = target.kv_pool.blocks_for_tokens(24)
+        assert target.kv_pool.evict_replicas_for_pressure(need) == 3
+        target.kv_pool.allocate(100, 24)
+        assert target.kv_pool.replica_table(node.node_id, 1) == []
+        flags = [b.replicated for b in node.kv_pool.table(1)]
+        if real:
+            assert req.replicated_through == 0 and not any(flags)
+        else:
+            assert req.replicated_through == 10 and all(flags)
+        node.fail()
+        rec.on_node_failure_detected(node.node_id, 0.0)
+        rec.tick(rec._reforms[0].done_at)
+        assert req.state == P.request.RequestState.MIGRATING
+        assert 1 not in target.kv_pool.live_requests()   # nothing promoted
+        stats.append(dict(rec.stats))
+    if real:
+        assert stats[0]["seamless_resumes"] == 0
+        assert stats[0]["partial_resumes"] == 1
+    else:
+        assert stats[0] == stats[1] and stats[0]["seamless_resumes"] == 1

@@ -243,6 +243,55 @@ def test_block_io_bit_exact():
     assert not b.k[:, :, untouched].any()
 
 
+@pytest.mark.parametrize("quantized", [False, True])
+def test_write_block_and_utilization_match_reference(quantized):
+    """``write_block`` lands one (L, K, page, D) block as the reference's
+    does (quantized per row on an int8 pool: payload and scales equal), and
+    ``utilization`` is the used share, live and hosted blocks alike."""
+    import jax.numpy as jnp
+    rng = np.random.default_rng(2)
+    shape = dict(n_layers=2, n_kv_heads=2, head_dim=64, real=True,
+                 quantized=quantized)
+    ours = PagedKVPool(9, 8, dtype=torch.bfloat16, device="cpu", **shape)
+    ref = JPool(9, 8, dtype="bfloat16", **shape)
+    k, v = (rng.standard_normal((2, 2, 8, 64)).astype(np.float32)
+            for _ in range(2))
+    ours.write_block(3, torch.from_numpy(k), torch.from_numpy(v))
+    ref.write_block(3, jnp.asarray(k), jnp.asarray(v))
+    names = ("k", "v", "k_scale", "v_scale") if quantized else ("k", "v")
+    for name in names:
+        assert np.array_equal(getattr(ours, name).float().numpy(),
+                              np.asarray(getattr(ref, name), np.float32))
+    assert not ours.k[:, :, [s for s in range(9) if s != 3]].any()
+    for pool in (ours, ref):
+        assert pool.utilization() == 0.0
+        pool.allocate(1, 20)                       # 3 blocks
+        pool.host_replica(5, 2, 2)
+    assert ours.utilization() == ref.utilization() == 5 / 9
+
+
+def test_empty_like_builds_the_same_kind_of_pool():
+    """A fresh pool shaped like its template: real buffers of the same
+    geometry, dtype, device, quantization and blob store, zeroed and free;
+    a metadata template gives a metadata pool."""
+    tpl = PagedKVPool(6, 4, n_layers=2, n_kv_heads=1, head_dim=64,
+                      real=True, dtype=torch.bfloat16, blob_words=16,
+                      n_blobs=3, device="cpu", quantized=True)
+    tpl.allocate(1, 9)
+    tpl.write_blocks([0], torch.ones((2, 1, 1, 4, 64)),
+                     torch.ones((2, 1, 1, 4, 64)))
+    new = tpl.empty_like()
+    assert new is not tpl and new.real and new.quantized
+    assert new.n_free == 6 and new.live_requests() == []
+    for name in ("k", "v", "k_scale", "v_scale", "blobs", "blob_scales"):
+        a, b = getattr(new, name), getattr(tpl, name)
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert a.device == b.device and a.data_ptr() != b.data_ptr()
+    assert not new.k.any()
+    meta = PagedKVPool(6, 4).empty_like()
+    assert not meta.real and meta.n_blocks == 6 and meta.page_size == 4
+
+
 # -- blob store (opaque per-request state: the hybrid's RG-LRU) -------------
 # the reference's own cases (tests/test_kvcache.py), then the port's pool
 # against the reference's on one operation log, and bit-exact blob IO

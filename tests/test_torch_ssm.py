@@ -209,15 +209,17 @@ def test_api_dispatch():
                                          cfg.ssm_head_dim, cfg.ssm_state)
     dense = get_config("llama3-8b")
     assert api.decode_window(dense, 100_000) == dense.long_context_window
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-        api.prefill(dense, {}, {"tokens": torch.zeros(1, 4, dtype=torch.int32)})
-    for arch_type in ("vlm", "audio"):
+    # every family's model API is ported: the dense, VLM and audio ones
+    # since the training slice (tests/test_torch_transformer.py), the hybrid
+    # one in tests/test_torch_hybrid.py
+    for arch_type, module in (("dense", "transformer"), ("vlm", "vlm"),
+                              ("audio", "encoder"), ("hybrid", "hybrid"),
+                              ("moe", "moe")):
         other = dataclasses.replace(dense, arch_type=arch_type)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            api.family(other)
-    # the hybrid family's model API is ported (tests/test_torch_hybrid.py)
-    hybrid_cfg = dataclasses.replace(dense, arch_type="hybrid")
-    assert api.family(hybrid_cfg).__name__ == "repro_torch.models.hybrid"
+        assert api.family(other).__name__ == f"repro_torch.models.{module}"
+    with pytest.raises(ValueError, match="encoder-only"):
+        api.prefill(get_config("hubert-xlarge"), {},
+                    {"tokens": torch.zeros(1, 4, dtype=torch.int32)})
 
 
 # --------------------------------------------------------------------------

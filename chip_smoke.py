@@ -4,6 +4,7 @@
   python3 chip_smoke.py
   python3 chip_smoke.py --drill-only    # phase 20 alone (after 1)
   python3 chip_smoke.py --train-only    # phases 29-31 alone (after 1-2)
+  python3 chip_smoke.py --dryrun-only   # phases 32-33 alone (after 1)
 
 Phases (each raises, and the script exits non-zero, if its check fails):
 
@@ -232,7 +233,24 @@ Phases (each raises, and the script exits non-zero, if its check fails):
                 (warmup 2) on one make_batch (4 x 256 frames), the masked
                 unit loss finite and falling; a step profile and the peak
                 memory.
-  32. summary — the head-geometry timings, one JSON line of kernels, the
+  32. dry run: the hillclimb's baselines — deepseek-67b and dbrx-132b at
+                decode_32k, mamba2-130m at train_4k, full size on the fake
+                16x16 mesh (fake cuda tensors), each `python -m
+                repro_torch.launch.dryrun` in a child process, the three
+                started together before phase 2 (they need only the CPU)
+                and waited for after it: every record ok, printed with its
+                per-device arguments, temp, flops and collective bytes and
+                the hillclimb's H100 roofline terms.
+  33. dry run grounded on the card — qwen1.5-0.5b train (b 4, s 256),
+                llama3-8b prefill (b 4, s 2048) and decode (b 8, context
+                4096): each step's dry-run record on the one-card mesh
+                (fake cuda tensors), then the same step run for real from
+                seed-0 weights; argument bytes equal the real tensors',
+                flops equal a FlopCounterMode count of the real step, and
+                arguments + temp within 15% of the allocator's peak above
+                the baseline before the step's first tensor; the step's
+                time and flops / time.
+  34. summary — the head-geometry timings, one JSON line of kernels, the
                 card line, and the final {"ok": true, "device": ...} line.
 
 Each path's kernel launch counts are set to 0 just before the path and read
@@ -269,7 +287,7 @@ from torch.utils.checkpoint import checkpoint
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import InputShape, get_config  # noqa: E402
 from repro_torch.core.cluster import build_group  # noqa: E402
 from repro_torch.core.communicator import CommunicatorManager  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
@@ -3699,6 +3717,171 @@ def train_phases(card: str) -> dict:
             "ssd_scan_backward_ms": mamba["backward_ms"]}
 
 
+# -- 32.-33. dry run ----------------------------------------------------------
+
+# the hillclimb's three baselines, on the fake 16x16 mesh
+DRYRUN_BASELINES = (("deepseek-67b", "decode_32k"), ("dbrx-132b", "decode_32k"),
+                    ("mamba2-130m", "train_4k"))
+# steps the card holds whole: each sized and costed by the dry run on the
+# one-card mesh, then run for real from seeded weights
+GROUNDING = (("qwen1.5-0.5b", InputShape("card_train", 256, 4, "train")),
+             ("llama3-8b", InputShape("card_prefill", 2048, 4, "prefill")),
+             ("llama3-8b", InputShape("card_decode", 4096, 8, "decode")))
+PEAK_TOL = 0.15     # predicted arguments + temp against the measured peak
+
+
+@contextlib.contextmanager
+def hillclimb_baselines():
+    """Phase 32's children: ``python -m repro_torch.launch.dryrun`` once per
+    baseline, all started together, fake cuda tensors on the fake 16x16
+    mesh. They need only the CPU, so they run while the kernels build; the
+    body runs beside them, and on the way out every child is waited for
+    (or killed, if the body raised). Yields the list the children's
+    records land in, filled on the way out."""
+    tmp = tempfile.mkdtemp(prefix="dryrun-")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs, records = [], []
+    try:
+        for arch, shape in DRYRUN_BASELINES:
+            out = os.path.join(tmp, f"{arch}.{shape}.json")
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", shape, "--device", "cuda",
+                   "--out", out]
+            procs.append((cmd, out, time.perf_counter(), subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True, env=env, cwd=ROOT)))
+        yield records
+        t0 = time.perf_counter()
+        for cmd, out, started, proc in procs:
+            text, _ = proc.communicate(timeout=900)
+            print(f"$ python -m {' '.join(cmd[2:])}: exit {proc.returncode} "
+                  f"{time.perf_counter() - started:.1f} s after its start")
+            for line in text.strip().splitlines()[-3:]:
+                print(f"    {line[:300]}")
+            check(proc.returncode == 0, f"{cmd[4]} x {cmd[6]} dry run failed")
+            with open(out) as f:
+                records.extend(json.load(f))
+        print(f"waited {time.perf_counter() - t0:.1f} s for the dry runs "
+              "after the body")
+    finally:
+        for _, _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def hillclimb_report(card: str, records):
+    """Phase 32's checks: every baseline record ``ok``, each printed with
+    its per-device arguments, temp, flops and collective bytes and the
+    hillclimb's roofline terms (H100 SXM constants)."""
+    from repro_torch.launch import hillclimb
+    check(len(records) == len(DRYRUN_BASELINES), "a baseline is missing")
+    for rec in records:
+        check(rec["status"] == "ok", f"{rec['arch']} x {rec['shape']}: "
+              f"{rec['status']} {rec.get('error', '')}")
+        print(f"[dry run {rec['arch']} x {rec['shape']} x {rec['mesh']}] "
+              f"args {rec['argument_bytes'] / 2**30:.3f} GiB/dev, temp "
+              f"{rec['temp_bytes'] / 2**30:.3f} GiB, flops/dev "
+              f"{rec['flops']:.4g}, bytes/dev {rec['hlo_bytes']:.4g}, "
+              f"collectives/dev {json.dumps(rec['collective_bytes'])}, "
+              f"layout {rec['lower_s']} s, step {rec['compile_s']} s "
+              f"[{card}]")
+        hillclimb.report(f"  baseline {rec['arch']} x {rec['shape']}", rec)
+
+
+def real_arguments(cfg, shape, meta, params):
+    """The step's arguments on the card, shaped as the dry run's ``meta``:
+    ``params`` for the params tree, seeded token ids below the vocab for
+    integer inputs, zeros for the optimizer's moments and step and for a
+    decode cache, a mid-context position for a decode step."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def make(t):
+        if t.dtype == torch.int32 and t.ndim:
+            return torch.randint(0, cfg.vocab_size, t.shape, dtype=t.dtype,
+                                 device="cuda", generator=gen)
+        return torch.zeros(t.shape, dtype=t.dtype, device="cuda")
+
+    rest = [TREE.unflatten(a, [make(t) for t in TREE.leaves(a)])
+            for a in meta[1:]]
+    if shape.kind == "decode":
+        rest[-1] = torch.tensor(shape.seq_len // 2, dtype=torch.int32,
+                                device="cuda")
+    return (params, *rest)
+
+
+def grounding_phase(card: str) -> list:
+    """Phase 33: each GROUNDING step's dry-run record on the one-card mesh
+    (fake cuda tensors), then the same step run for real from seeded
+    weights. Checks: the record's argument bytes equal the real tensors'
+    bytes; its flops equal a FlopCounterMode count of the real step
+    (dense steps: no kernel's work is hidden from the counter); predicted
+    arguments + temp within PEAK_TOL of the allocator's peak above the
+    baseline taken before the step's first tensor. Prints the step's time
+    (median of 3 after a first run) and flops / time."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    rows, params, params_of = [], None, None
+    free()
+    for arch, shape in GROUNDING:
+        cfg = get_config(arch)
+        rec = dryrun.dry_run(cfg, shape, make_local_mesh(), device="cuda")
+        fn, meta, _ = dryrun.build_lowerable(cfg, shape, make_local_mesh())
+        if params_of != arch:
+            params = None
+            free()
+            base = torch.cuda.memory_allocated()
+            params = api.init_params(
+                cfg, torch.Generator(device="cuda").manual_seed(0),
+                device="cuda")
+            params_of = arch
+        args = real_arguments(cfg, shape, meta, params)
+        got = dryrun.local_bytes(args)
+        check(got == rec["argument_bytes"], f"{arch} {shape.kind}: argument "
+              f"bytes {got} on the card, {rec['argument_bytes']} predicted")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        del out
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            del out
+        with FlopCounterMode(display=False) as counter:
+            out = fn(*args)
+        del out
+        flops = counter.get_total_flops()
+        check(flops == rec["flops"], f"{arch} {shape.kind}: {flops} flops "
+              f"counted on the card, {rec['flops']} predicted")
+        predicted = rec["argument_bytes"] + rec["temp_bytes"]
+        err = predicted / peak - 1
+        check(abs(err) <= PEAK_TOL, f"{arch} {shape.kind}: predicted "
+              f"{predicted} B against a peak of {peak} B ({err:+.3f})")
+        wall = statistics.median(walls)
+        row = {"arch": arch, "kind": shape.kind, "batch": shape.global_batch,
+               "seq": shape.seq_len, "argument_bytes": got, "flops": flops,
+               "temp_bytes_predicted": rec["temp_bytes"],
+               "peak_bytes": peak, "peak_error": round(err, 4),
+               "step_ms": round(wall * 1e3, 3),
+               "tflops_per_s": round(flops / wall / 1e12, 2),
+               "dry_run_s": rec["compile_s"]}
+        rows.append(row)
+        print(f"[grounding] {json.dumps(row)} [{card}]")
+        del args
+    params = None
+    free()
+    return rows
+
+
 def train_only(card: str) -> int:
     """``--train-only``: phases 1-2, then the training phases; no
     summary."""
@@ -3722,6 +3905,17 @@ def build_all():
               f"{secs:.1f} s" if secs is not None else
               f"{os.path.relpath(lib, ROOT)} already built")
     print(f"build phase: {time.perf_counter() - t0:.1f} s wall")
+
+
+def dryrun_only(card: str) -> int:
+    """``--dryrun-only``: phases 32 and 33 alone; no build, no summary."""
+    phase("dry run: the hillclimb's baselines on the fake 16x16 mesh")
+    with hillclimb_baselines() as baselines:
+        pass
+    hillclimb_report(card, baselines)
+    phase("dry run grounded on the card")
+    grounding_phase(card)
+    return 0
 
 
 def drill_only(card: str) -> int:
@@ -3751,12 +3945,17 @@ def main() -> int:
         return drill_only(card)
     if sys.argv[1:] == ["--train-only"]:
         return train_only(card)
+    if sys.argv[1:] == ["--dryrun-only"]:
+        return dryrun_only(card)
     check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
 
-    phase("build")
+    phase("build (the dry run's baselines beside it)")
     ptxas = start_ptxas_report()
     try:
-        build_all()
+        with hillclimb_baselines() as baselines:
+            build_all()
+        phase("dry run: the hillclimb's baselines on the fake 16x16 mesh")
+        hillclimb_report(card, baselines)
 
         phase("kernel")
         entries = [kernel_phase()]
@@ -3777,6 +3976,8 @@ def main() -> int:
     launches["ssd_scan"] = mamba2_phase(card)
     trained = train_phases(card)
     launches["ssd_scan"] += trained["ssd_scan"]
+    phase("dry run grounded on the card")
+    grounding_phase(card)
     for e in entries:
         e["launches"] = launches[e["name"]]
         if e["name"] == "ssd_scan":

@@ -1,9 +1,14 @@
-"""Divisibility-aware sharding rules for params and decode caches, and the
-degraded layout a shard loss leaves — in plain Python over shapes.
+"""Divisibility-aware sharding rules for params, batches and decode caches,
+and the degraded layout a shard loss leaves — in plain Python over shapes —
+and the builders that turn them into DTensor placements.
 
-A mesh is a dict from axis name to size (``{"data": 1, "model": 4}``); a
-spec is a tuple with one entry per tensor dim: an axis name, a tuple of
-axis names, or ``None`` (replicated along that dim). A tree is nested dicts
+A mesh is a dict from axis name to size (``{"data": 1, "model": 4}``), or a
+``DeviceMesh`` whose dim names are those axis names (the builders read its
+sizes); a spec is a tuple with one entry per tensor dim: an axis name, a
+tuple of axis names, or ``None`` (replicated along that dim). A
+``Sharding`` pairs a leaf's spec with its placements: one per mesh axis, in
+the mesh's order, ``Shard(d)`` on every axis that tensor dim ``d`` is split
+over and ``Replicate()`` elsewhere. A tree is nested dicts
 and lists whose leaves carry ``.shape`` and ``.dtype`` (torch tensors, meta
 tensors included, or ``Leaf``); a path is the tuple of dict keys and list
 indices (as strings) down to a leaf.
@@ -17,6 +22,8 @@ its summary for the same shapes:
     rule reads the path, so it holds the first dim of the hybrid's
     per-layer matrices too, as the reference's does. Fallback = replicate
     the offending dim.
+  * batch inputs: the leading (batch) dim -> the data axes ("pod" and
+    "data") when they divide it, every axis under ``pure_dp``.
   * decode caches: dense k/v (L, B, C, K, D) and int8 scales (L, B, C, K,
     1) -> (None, data, model@C, None, None); ssm and hybrid states by
     width.
@@ -29,7 +36,7 @@ axis no longer divides falls back to replication.
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -51,6 +58,19 @@ class Leaf(NamedTuple):
 def mesh(n_shards: int, n_data: int = 1) -> Mesh:
     """The one-instance serving mesh: ``n_shards`` model shards."""
     return {"data": n_data, "model": n_shards}
+
+
+def abstract_mesh(shape: Tuple[int, ...], names: Tuple[str, ...]) -> Mesh:
+    """A mesh of axis sizes only, no devices (the reference's
+    ``AbstractMesh``)."""
+    return dict(zip(names, shape))
+
+
+def mesh_sizes(m) -> Mesh:
+    """``m``'s axis sizes as a dict mesh (a ``DeviceMesh`` or a dict)."""
+    if isinstance(m, dict):
+        return m
+    return dict(zip(m.mesh_dim_names, m.mesh.shape))
 
 
 def data_axes(m: Mesh) -> Tuple[str, ...]:
@@ -150,6 +170,78 @@ def params_specs(params_shape, m: Mesh, profile: str = "baseline"):
 
 
 # --------------------------------------------------------------------------
+# shardings: specs as DTensor placements, over whole trees
+# --------------------------------------------------------------------------
+
+class Sharding(NamedTuple):
+    """One leaf's layout: its spec, and the DTensor placements it gives on
+    a mesh with these axis names (one per axis, in the mesh's order)."""
+    spec: Spec
+    placements: Tuple[Any, ...]
+
+
+def placements(spec: Spec, axis_names) -> Tuple[Any, ...]:
+    """``spec`` as DTensor placements over mesh axes ``axis_names``: a
+    tensor dim split over a tuple of axes is ``Shard`` on each of them
+    (split by the first axis, then within that by the next, as the
+    reference's multi-axis entries are)."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = [Replicate()] * len(axis_names)
+    for dim, axes in enumerate(spec):
+        for a in (axes,) if isinstance(axes, str) else (axes or ()):
+            out[list(axis_names).index(a)] = Shard(dim)
+    return tuple(out)
+
+
+def sharding(spec: Spec, m: Mesh) -> Sharding:
+    return Sharding(spec, placements(spec, tuple(m)))
+
+
+def _map(tree, fn, path=()):
+    """``tree``'s structure (dicts, lists, tuples, NamedTuples) with each
+    leaf replaced by ``fn(path, leaf)``; a path as in ``_leaves``."""
+    if isinstance(tree, dict):
+        return {k: _map(v, fn, path + (str(k),)) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map(getattr(tree, f), fn, path + (f,))
+                            for f in tree._fields))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(v, fn, path + (str(i),))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def params_shardings(params_shape, mesh, profile: str = "baseline"):
+    """A ``Sharding`` per leaf of a params tree, in its structure."""
+    m = mesh_sizes(mesh)
+    return _map(params_shape, lambda path, leaf: sharding(
+        param_spec(path, tuple(leaf.shape), m, "layers" in path, profile),
+        m))
+
+
+def batch_spec(shape: Tuple[int, ...], m: Mesh,
+               profile: str = "baseline") -> Spec:
+    """Spec for one batch input: its leading dim over the data axes when
+    they divide it (every axis under ``pure_dp``: the model axis holds no
+    weights there, so it becomes more data parallelism), else
+    replicated."""
+    dp = tuple(m) if profile == "pure_dp" else data_axes(m)
+    if shape and _div(shape[0], m, dp):
+        return (_norm_axes(dp),) + (None,) * (len(shape) - 1)
+    return ()
+
+
+def batch_shardings(batch_shape, mesh, profile: str = "baseline"):
+    m = mesh_sizes(mesh)
+    return _map(batch_shape, lambda path, leaf: sharding(
+        batch_spec(tuple(leaf.shape), m, profile), m))
+
+
+def replicated(mesh) -> Sharding:
+    return sharding((), mesh_sizes(mesh))
+
+
+# --------------------------------------------------------------------------
 # decode-cache specs
 # --------------------------------------------------------------------------
 
@@ -194,6 +286,13 @@ def cache_specs(cache_shape, m: Mesh, arch_type: str):
     """One spec per cache leaf, in ``_leaves`` order."""
     return [cache_spec(path, tuple(leaf.shape), m, arch_type)
             for path, leaf in _leaves(cache_shape)]
+
+
+def cache_shardings(cache_shape, mesh, arch_type: str):
+    """A ``Sharding`` per leaf of a decode-state tree, in its structure."""
+    m = mesh_sizes(mesh)
+    return _map(cache_shape, lambda path, leaf: sharding(
+        cache_spec(path, tuple(leaf.shape), m, arch_type), m))
 
 
 def decode_cache_shape(cfg, batch: int, seq_len: int) -> Dict[str, Leaf]:
@@ -242,6 +341,18 @@ def degraded_spec(path: Tuple[str, ...], shape: Tuple[int, ...], m: Mesh,
     """``param_spec`` re-evaluated over the surviving model-axis slice."""
     return param_spec(path, shape, degraded_mesh(m, lost_shards),
                       stacked_layers, profile)
+
+
+def degraded_params_shardings(params_shape, mesh, lost_shards,
+                              profile: str = "baseline"):
+    return params_shardings(
+        params_shape, degraded_mesh(mesh_sizes(mesh), lost_shards), profile)
+
+
+def degraded_cache_shardings(cache_shape, mesh, lost_shards,
+                             arch_type: str):
+    return cache_shardings(
+        cache_shape, degraded_mesh(mesh_sizes(mesh), lost_shards), arch_type)
 
 
 def _spec_uses_model(spec: Spec) -> bool:

@@ -4,30 +4,37 @@ instances, as the reference's launcher does.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b --device cpu
+  # one serve step sized and costed on the 16x16 / 2x16x16 mesh:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \
+      --shape decode_32k --dry-run [--multi-pod] [--device cpu]
 
 A config over 3e8 params serves its reduced variant (the reference's
 rule). On the card decode attention runs through the ``paged_attention``
-kernel; the launcher prints its launch count. ``--dry-run`` is the
-reference's TPU lowering tool, which the port does not have: it exits
-non-zero and says so.
+kernel; the launcher prints its launch count. ``--dry-run`` runs
+``launch/dryrun.py``'s record of ``--shape`` (prefill or decode) instead of
+serving, on fake tensors of ``--device``, and exits 0 when it is ``ok`` or
+``skipped``.
 """
 import argparse
 import sys
-
-from repro_torch.launch.train import refuse_tpu_flag
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", default="decode_32k")
+    ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--dry-run", action="store_true",
-                    help="lower + compile only (TPU mesh; not in the port)")
+                    help="size and cost one step on the production mesh")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
 
     if args.dry_run:
-        refuse_tpu_flag("--dry-run")
+        from repro_torch.launch.dryrun import dry_run_one
+        rec = dry_run_one(args.arch, args.shape, multi_pod=args.multi_pod,
+                          device=args.device)
+        sys.exit(0 if rec["status"] in ("ok", "skipped") else 1)
 
     import numpy as np
 

@@ -3,41 +3,35 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m --steps 100
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
       --device cpu --steps 20
+  # one train_4k step sized and costed on the 16x16 / 2x16x16 mesh:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-67b \
+      --dry-run [--multi-pod] [--device cpu]
 
 A config over 3e8 params trains its reduced variant (the reference's rule).
 On the card the Mamba-2 scan runs through the ``ssd_scan`` kernel, its
-gradient through ``models.ssm.SSDScan``. ``--dry-run`` (compile-only
-against a TPU mesh) is the reference's TPU lowering tool, which the port
-does not have, and ``--multi-pod`` picks that tool's mesh: either exits
-non-zero and says so.
+gradient through ``models.ssm.SSDScan``. ``--dry-run`` runs
+``launch/dryrun.py``'s record of ``train_4k`` instead of training, on fake
+tensors of ``--device``, and exits 0 when it is ``ok`` or ``skipped``.
 """
 import argparse
 import sys
-
-def refuse_tpu_flag(flag: str):
-    """Exits 2: ``flag`` belongs to the reference's TPU lowering."""
-    print(f"{flag} belongs to the reference's lowering of the program for "
-          "a TPU mesh (launch/dryrun.py); the port has no TPU lowering "
-          "tools: ROADMAP.md Queue 1 item 13 (the TPU lowering tools)",
-          file=sys.stderr)
-    sys.exit(2)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=100)
-    ap.add_argument("--multi-pod", action="store_true",
-                    help="the TPU lowering's 2-pod mesh (not in the port)")
-    ap.add_argument("--dry-run", action="store_true",
-                    help="lower + compile only (TPU mesh; not in the port)")
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--dry-run", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
 
-    for flag in ("dry_run", "multi_pod"):
-        if getattr(args, flag):
-            refuse_tpu_flag("--" + flag.replace("_", "-"))
+    if args.dry_run:
+        from repro_torch.launch.dryrun import dry_run_one
+        rec = dry_run_one(args.arch, "train_4k", multi_pod=args.multi_pod,
+                          device=args.device)
+        sys.exit(0 if rec["status"] in ("ok", "skipped") else 1)
 
     from repro_torch.configs import get_config
     from repro_torch.training.data import DataConfig

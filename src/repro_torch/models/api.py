@@ -21,10 +21,9 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
-import torch
-
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encoder, hybrid, moe, ssm, transformer, vlm
+from repro_torch.models import layers as L
 
 _FAMILIES = {
     "dense": transformer,
@@ -83,13 +82,6 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device="cuda"):
 # train loss
 # --------------------------------------------------------------------------
 
-def _nll(logits, targets):
-    """Per-position negative log-likelihood of ``targets`` under
-    ``logits``, the log-softmax in f32."""
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    return -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
-
-
 def next_token_loss(cfg, params, tokens, q_chunk: int = 1024):
     """Causal LM loss over (B, S) tokens (inputs = tokens[:, :-1]); the MoE
     family adds its load-balance aux loss."""
@@ -100,7 +92,7 @@ def next_token_loss(cfg, params, tokens, q_chunk: int = 1024):
     else:
         logits = mod.forward(cfg, params, tokens[:, :-1], q_chunk=q_chunk)
         aux = 0.0
-    return _nll(logits, tokens[:, 1:]).mean() + aux
+    return L.token_nll(logits, tokens[:, 1:]).mean() + aux
 
 
 def loss(cfg: ModelConfig, params, batch: Dict[str, Any],
@@ -120,7 +112,7 @@ def loss(cfg: ModelConfig, params, batch: Dict[str, Any],
         npatch = 0 if patches is None else patches.shape[1]
         # predict text tokens only (shift within the text segment)
         text_logits = logits[:, npatch:-1] if npatch else logits[:, :-1]
-        return _nll(text_logits, batch["tokens"][:, 1:]).mean()
+        return L.token_nll(text_logits, batch["tokens"][:, 1:]).mean()
     return next_token_loss(cfg, params, batch["tokens"], q_chunk=q_chunk)
 
 

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 
@@ -29,7 +30,6 @@ def masked_unit_loss(cfg, params, frame_embeds, targets, mask):
     targets: (B, S) integer unit ids; mask: (B, S) bool (True = masked
     frame, where the loss is taken, as in the paper)."""
     logits = forward(cfg, params, frame_embeds)
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    nll = L.token_nll(logits, targets)
     denom = torch.clamp(mask.sum(), min=1)
     return (nll * mask).sum() / denom

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import layout as ML
 from repro_torch.models import layers as L
 
 LRU_C = 8.0     # temperature constant from the Griffin paper
@@ -141,10 +142,25 @@ def rglru_scan(p, x, h0=None, g=None, rows: int = 0):
     an unchunked run."""
     log_a, b = _rglru_gates(p, x, g, rows)
     a = torch.exp(log_a)
-    cur = torch.zeros_like(b[:, 0]) if h0 is None else h0.float()
+    h0 = torch.zeros_like(b[:, 0]) if h0 is None else h0.float()
+    if ML.is_dtensor(b):
+        # elementwise over batch and width: each shard's recurrence runs
+        # on its local tensors
+        mesh = b.device_mesh
+        seq = ML.mesh_placements(mesh, 3, data=(0, b.shape[0]),
+                                model=(2, b.shape[2]))
+        last = ML.mesh_placements(mesh, 2, data=(0, b.shape[0]),
+                                 model=(1, b.shape[2]))
+        return ML.on_shards(_sequential, mesh, (seq, last),
+                           (seq, seq, last))(a, b, h0)
+    return _sequential(a, b, h0)
+
+
+def _sequential(a, b, cur):
+    """h_t = b_t + a_t * h_{t-1} over dim 1, from h_{-1} = ``cur``."""
     steps = []
-    for t in range(b.shape[1]):
-        cur = torch.addcmul(b[:, t], a[:, t], cur)
+    for bt, at in zip(b.unbind(1), a.unbind(1)):
+        cur = torch.addcmul(bt, at, cur)
         steps.append(cur)
     return torch.stack(steps, dim=1), cur
 

@@ -33,6 +33,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import layout as ML
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import layer_params
@@ -168,11 +169,66 @@ def expert_mix(experts, x32, weights, rows: int = 0):
     return out
 
 
+def _mesh_moe_mlp(cfg, p, x, capacity_factor, group_size, rows):
+    """``moe_mlp`` on DTensors, run on each device's local tensors: its
+    rows (the batch over the data axes, where they divide it) routed in
+    groups of its own, and over the model axis its share of the experts
+    (an expert axis the axis divides and the layout splits:
+    ``expert_parallel``) or of each expert's ``d_ff`` (gate and up columns,
+    down rows: a tensor-parallel MLP). The output sums the model axis's
+    shares; the aux loss averages the data shards' (equal token counts).
+    The gradients' layouts are chosen for the collectives they cost (the
+    dry run reads no values): each weight's gradient sums over the data
+    shards, and the router's and the input's over the model shares too."""
+    from torch.distributed.tensor import Partial, Replicate
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    ex = p["experts"]
+    e, f = ex["w_gate"].shape[0], ex["w_gate"].shape[2]
+    model = names.index("model") if "model" in names else None
+    x_pl = ML.mesh_placements(mesh, 3, data=(0, x.shape[0]))
+    whole = [Replicate()] * mesh.ndim
+    if model is not None and e % mesh.size(model) == 0 and \
+            ex["w_gate"].placements[model].is_shard(0):
+        gate_pl = down_pl = ML.mesh_placements(mesh, 3, model=(0, e))
+    else:
+        gate_pl = ML.mesh_placements(mesh, 3, model=(2, f))
+        down_pl = ML.mesh_placements(mesh, 3, model=(1, f))
+    split = model is not None and not gate_pl[model].is_replicate()
+    y_pl = ML.partial_on_model(mesh, x_pl) if split else x_pl
+    aux_pl = [Partial("avg") if pl.is_shard() else Replicate()
+              for pl in x_pl]
+    # a weight's gradient sums the data shards' (and, for the router and
+    # the input, the model shares') contributions
+    data_sum = [Partial() if pl.is_shard() else Replicate() for pl in x_pl]
+    router_grad = ML.partial_on_model(mesh, data_sum) if split else data_sum
+
+    def summed(pls):
+        return [Partial() if d.is_partial() and pl.is_replicate() else pl
+                for pl, d in zip(pls, data_sum)]
+
+    def local(xl, router, wg, wu, wd):
+        lp = {"router": router,
+              "experts": {"w_gate": wg, "w_up": wu, "w_down": wd}}
+        return moe_mlp(cfg, lp, xl, capacity_factor=capacity_factor,
+                       group_size=group_size, rows=rows)
+
+    return ML.on_shards(
+        local, mesh, (y_pl, aux_pl),
+        (x_pl, whole, gate_pl, gate_pl, down_pl),
+        (y_pl, router_grad, summed(gate_pl), summed(gate_pl),
+         summed(down_pl)))(
+        x, ML.use_weight(p["router"]), ML.use_weight(ex["w_gate"]),
+        ML.use_weight(ex["w_up"]), ML.use_weight(ex["w_down"]))
+
+
 def moe_mlp(cfg, p, x, *, capacity_factor: float = 1.25,
             group_size: int = GROUP_SIZE, rows: int = 0):
     """Routed expert MLP of one layer (params ``p``). x: (B, S, d) ->
     ((B, S, d) in x's dtype, f32 load-balance aux loss). ``rows``: the
     matrix products' row blocks (``L.row_matmul``)."""
+    if ML.is_dtensor(x):
+        return _mesh_moe_mlp(cfg, p, x, capacity_factor, group_size, rows)
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     g = min(group_size, b * s)

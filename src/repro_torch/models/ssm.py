@@ -18,6 +18,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import layout as ML
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import layer_params, unstacked
@@ -202,11 +203,14 @@ def ssd_chunked(xdt, a, B, C, h0=None, chunk: int = 256):
     h0:  (b, h, p, n)  initial state (decode continuation) or None
     Returns (y (b,s,h,p) f32, h_final (b,h,p,n) f32).
 
-    A CPU tensor runs ``ssd_chunked_plain``; any other goes to the
-    ``ssd_scan`` kernel through ``SSDScan`` (which launches or raises, and
+    A CPU tensor runs ``ssd_chunked_plain``, a DTensor
+    ``_mesh_ssd_chunked``; any other goes to the ``ssd_scan`` kernel
+    through ``SSDScan`` (which launches or raises, and
     carries the gradient), on the same padded sequence.
     """
     global plain_scans
+    if ML.is_dtensor(xdt):
+        return _mesh_ssd_chunked(xdt, a, B, C, h0, chunk)
     if xdt.device.type == "cpu":
         plain_scans += 1
         return ssd_chunked_plain(xdt, a, B, C, h0, chunk)
@@ -214,6 +218,28 @@ def ssd_chunked(xdt, a, B, C, h0=None, chunk: int = 256):
     xdt, a, B, C, chunk = _pad_to_chunk(xdt, a, B, C, chunk)
     y, h_final = SSDScan.apply(xdt, a, B, C, h0, chunk)
     return y[:, :s], h_final
+
+
+def _mesh_ssd_chunked(xdt, a, B, C, h0, chunk):
+    """``ssd_chunked`` on DTensors (the dry run's fake tensors): the batch
+    over the data axes and the heads over the model axis where they divide
+    them, each shard's scan the plain chunked form on its local tensors
+    (batches and heads are independent; B and C are shared by the heads).
+    Counted in neither ``plain_scans`` nor a kernel's launches."""
+    mesh = xdt.device_mesh
+    b, h = xdt.shape[0], xdt.shape[2]
+    x_pl = ML.mesh_placements(mesh, 4, data=(0, b), model=(2, h))
+    a_pl = ML.mesh_placements(mesh, 3, data=(0, b), model=(2, h))
+    bc_pl = ML.mesh_placements(mesh, 3, data=(0, b))
+    h_pl = ML.mesh_placements(mesh, 4, data=(0, b), model=(1, h))
+    # the heads' shares of B's and C's gradients sum across the model axis
+    bc_grad = ML.partial_on_model(mesh, bc_pl) if x_pl != bc_pl else bc_pl
+    ins, grads = (x_pl, a_pl, bc_pl, bc_pl), (x_pl, a_pl, bc_grad, bc_grad)
+    args = (xdt, a, B, C)
+    if h0 is not None:
+        ins, grads, args = ins + (h_pl,), grads + (h_pl,), args + (h0,)
+    return ML.on_shards(lambda *t: ssd_chunked_plain(*t, chunk=chunk), mesh,
+                       (x_pl, h_pl), ins, grads)(*args)
 
 
 def _causal_conv(x, w, b, state=None):
@@ -249,10 +275,10 @@ def ssd_block(cfg, p, x, conv_state=None, ssm_state=None, chunk=None):
     pdim = cfg.ssm_head_dim
     res = x
     x = L.rms_norm(x, p["norm_in"], cfg.norm_eps)
-    z, xbc, dt = _split_proj(cfg, x @ p["in_proj"])
+    z, xbc, dt = _split_proj(cfg, L.row_matmul(x, p["in_proj"]))
     xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state)
     xbc = F.silu(xbc)
-    xs = xbc[..., :di].reshape(b, s, h, pdim)
+    xs = ML.split_ready(xbc[..., :di], -1, h).reshape(b, s, h, pdim)
     Bmat = xbc[..., di:di + n]
     Cmat = xbc[..., di + n:]
     dt = F.softplus(dt.float() + p["dt_bias"])                     # (B,S,H)
@@ -262,10 +288,10 @@ def ssd_block(cfg, p, x, conv_state=None, ssm_state=None, chunk=None):
     y, h_final = ssd_chunked(xdt, a_log, Bmat, Cmat, h0=ssm_state,
                              chunk=chunk or cfg.ssm_chunk)
     y = y + xs.float() * p["D"][None, None, :, None]
-    y = y.reshape(b, s, di)
+    y = ML.grad_split_ready(y.reshape(b, s, di), -1, h)
     y = L.rms_norm(y.to(res.dtype) * F.silu(z), p["norm_gate"],
                    cfg.norm_eps)
-    return res + (y @ p["out_proj"]), new_conv, h_final
+    return res + L.row_matmul(y, p["out_proj"]), new_conv, h_final
 
 
 def ssd_decode_block(cfg, p, x, conv_state, ssm_state):
@@ -275,10 +301,10 @@ def ssd_decode_block(cfg, p, x, conv_state, ssm_state):
     pdim = cfg.ssm_head_dim
     res = x
     x = L.rms_norm(x, p["norm_in"], cfg.norm_eps)
-    z, xbc, dt = _split_proj(cfg, x @ p["in_proj"])
+    z, xbc, dt = _split_proj(cfg, L.row_matmul(x, p["in_proj"]))
     xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state)
     xbc = F.silu(xbc)
-    xs = xbc[:, 0, :di].reshape(b, h, pdim).float()
+    xs = ML.split_ready(xbc[:, 0, :di], -1, h).reshape(b, h, pdim).float()
     Bv = xbc[:, 0, di:di + n].float()
     Cv = xbc[:, 0, di + n:].float()
     dt = F.softplus(dt[:, 0].float() + p["dt_bias"])              # (B,H)
@@ -291,7 +317,7 @@ def ssd_decode_block(cfg, p, x, conv_state, ssm_state):
     y = y.reshape(b, 1, di)
     y = L.rms_norm(y.to(res.dtype) * F.silu(z), p["norm_gate"],
                    cfg.norm_eps)
-    return res + (y @ p["out_proj"]), new_conv, new_state
+    return res + L.row_matmul(y, p["out_proj"]), new_conv, new_state
 
 
 # --------------------------------------------------------------------------

@@ -38,7 +38,7 @@ def test_port_and_chip_smoke_import_without_jax_or_reference():
                          text=True, env=env, cwd=ROOT, timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 61                       # every submodule imported
+    assert len(names) >= 67                       # every submodule imported
     assert {"repro_torch.kernels.build",
             "repro_torch.kernels.paged_attention_int8",
             "repro_torch.kernels.ops",
@@ -48,6 +48,7 @@ def test_port_and_chip_smoke_import_without_jax_or_reference():
             "repro_torch.models.hybrid",
             "repro_torch.models.api",
             "repro_torch.distributed.sharding",
+            "repro_torch.distributed.layout",
             "repro_torch.core.clock",
             "repro_torch.core.cluster",
             "repro_torch.core.communicator",
@@ -66,7 +67,12 @@ def test_port_and_chip_smoke_import_without_jax_or_reference():
             "repro_torch.training.checkpoint",
             "repro_torch.training.train_loop",
             "repro_torch.launch.train",
-            "repro_torch.launch.serve"} <= names
+            "repro_torch.launch.serve",
+            "repro_torch.launch.mesh",
+            "repro_torch.launch.specs",
+            "repro_torch.launch.op_cost",
+            "repro_torch.launch.dryrun",
+            "repro_torch.launch.hillclimb"} <= names
 
 
 FORBIDDEN = re.compile(

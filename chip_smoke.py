@@ -10,8 +10,8 @@ Phases (each raises, and the script exits non-zero, if its check fails):
 
   1. device   — a CUDA card is required; prints its name and power limit;
                 TF32 off for matmuls and convolutions.
-  2. build    — compiles the three kernel libraries (paged attention, bf16
-                and int8 pools; the Mamba-2 SSD scan) from
+  2. build    — compiles the four kernel libraries (paged attention, bf16
+                and int8 pools; the Mamba-2 SSD scan and its backward) from
                 src/repro_torch/kernels/csrc/ with nvcc (sm_90a), one nvcc
                 process per source, started together.
   3. kernel   — holds the bf16 paged-attention kernel against its plain
@@ -58,7 +58,19 @@ Phases (each raises, and the script exits non-zero, if its check fails):
                 f32, plain TF32 and split TF32 products against an f64
                 recurrence; times kernel and plain versions in a CUDA graph
                 with the grid size, and both bounds (f32 CUDA cores, tensor
-                cores) with the share of each.
+                cores) with the share of each. Then the backward kernel
+                (the state pass and reverse walk, then the partials' sum) at
+                the serving shape, the train shape (b 4, s 256), a ragged
+                s 200, P 18 / N 20 and N 200 (padded by the wrapper, with
+                unaligned rows), N 256; B and C f32 and bf16, with and
+                without h0 and gh: against its plain version and the plain
+                chunked form's VJP, every output's error against the plain
+                version in f64 (an f32 output within 4x the better plain
+                f32 version's error or 1e-5 x max|f64|; a bf16 dB or dC
+                within one bf16 spacing plus 1e-5 x max|f64|), two calls
+                bit-identical; device
+                time in a CUDA graph at the train and serving shapes beside
+                its bound, the plain version's and the plain VJP's time.
   7. serving  — the port's HTTP server with full-width Llama-3.1-8B (random
                 weights from a seeded torch.Generator), 2 instances, ring
                 replication on; concurrent completions, greedy determinism,
@@ -209,7 +221,9 @@ Phases (each raises, and the script exits non-zero, if its check fails):
                 100 steps, remat): every logged loss finite, the last below
                 the first; scan launches = steps x 2 forwards (remat) x 24
                 layers x 2 kernels, no plain forward scan, one SSDScan
-                backward per layer per step; the raw kernel wrapper refuses
+                backward per layer per step through the backward kernel
+                (steps x 24 layers x 2 kernels, no plain backward scan);
+                the raw kernel wrapper refuses
                 an input that requires grad; in f32 at batch 2 x 512 (two
                 chunks) every param leaf's gradient through the kernel's
                 Function, at chunk 32 and at the config's 256, against the
@@ -217,8 +231,9 @@ Phases (each raises, and the script exits non-zero, if its check fails):
                 relative error per leaf 1e-3; at 256 the plain form loses
                 f32 digits, printed); a checkpoint saved and restored bit for
                 bit; one step profiled (wall, busy, idle share, launches,
-                the scan kernels' time, tok/s) and SSDScan's forward and
-                backward timed alone; then `python -m
+                the forward and backward scan kernels' time apart, tok/s)
+                and SSDScan's forward and backward timed alone; then
+                `python -m
                 repro_torch.launch.train --arch mamba2-130m --steps 20`.
   30. train qwen1.5-0.5b — dense at full width (619.5 M params, bf16): 20
                 train() steps at batch 4 x 256 (loss finite and falling), a
@@ -257,7 +272,8 @@ Each path's kernel launch counts are set to 0 just before the path and read
 just after; launches made to compare a kernel with its plain version are
 not counted. An attention call counts each CUDA kernel it launches: its
 split pass and, over a table wide enough for two splits, its merge pass; a
-scan call its C·Bᵀ pass and its scan. The serve launcher of phase 30 runs
+scan call its C·Bᵀ pass and its scan; a scan backward its walk and its
+ordered sum of the partials. The serve launcher of phase 30 runs
 qwen1.5-0.5b at its reduced size: its attention launches stand apart, as
 ``launches_serve_launcher_reduced``, not in the full-width count.
 """
@@ -294,7 +310,8 @@ from repro_torch.kernels import paged_attention as PA  # noqa: E402
 from repro_torch.kernels import paged_attention_int8 as PA8  # noqa: E402
 from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.kernels.ref import (paged_attention_int8_ref,  # noqa: E402
-                                     paged_attention_ref, ssd_scan_ref)
+                                     paged_attention_ref,
+                                     ssd_scan_backward_ref, ssd_scan_ref)
 from repro_torch.models import (api, hybrid, moe, ssm,  # noqa: E402
                                 transformer)
 from repro_torch.models import paged_decode as PD  # noqa: E402
@@ -1067,6 +1084,192 @@ def ssd_scan_phase() -> dict:
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": None,
             "bound_cuda_cores_ms": cms, "grid_blocks": grid}
+
+
+
+# -- 6. kernel (ssd_scan backward) --------------------------------------------
+
+SSD_TRAIN = (4, 256, 24, 64, 128, 256)        # mamba2-130m's train step
+SSD_BWD_CASES = [   # shape, B/C dtype, h0, gh, rows of 2n + 5 (unaligned)
+    (SSD_SERVE, torch.bfloat16, False, True, False),
+    (SSD_SERVE, torch.float32, True, True, False),
+    (SSD_TRAIN, torch.bfloat16, False, False, False),   # as training runs it
+    (SSD_TRAIN, torch.float32, True, True, False),
+    ((8, 200, 24, 64, 128, 200), torch.bfloat16, False, True, False),
+    ((2, 64, 4, 18, 20, 32), torch.float32, True, True, True),  # P, N padded
+    ((2, 64, 4, 18, 20, 32), torch.bfloat16, False, False, False),
+    ((2, 96, 4, 32, 200, 96), torch.bfloat16, True, True, False),
+    ((2, 96, 4, 32, 200, 96), torch.float32, False, True, True),
+    ((2, 96, 4, 64, 256, 32), torch.bfloat16, True, True, False),  # N 256
+]
+GRAD_NAMES = ("dxdt", "da", "dB", "dC", "dh0")
+
+
+def ssd_bwd_case(shape, bc_dtype, seed, with_h0, with_gh, odd_rows):
+    """A scan case (``ssd_case``) with the gradients of y and of the final
+    state (standard normal; gh None when ``with_gh`` is false, as training
+    leaves h_final unused)."""
+    xdt, a, B, C, h0 = ssd_case(shape, bc_dtype, seed, with_h0, odd_rows)
+    g = torch.Generator(device="cuda").manual_seed(1000 + seed)
+    gy = torch.randn(xdt.shape, generator=g, device="cuda")
+    gh = torch.randn((*xdt.shape[:1], xdt.shape[2], xdt.shape[3],
+                      B.shape[-1]), generator=g, device="cuda") \
+        if with_gh else None
+    return xdt, a, B, C, h0, gy, gh
+
+
+def plain_vjp_graph(xdt, a, B, C, h0, gy, gh, chunk):
+    """The plain chunked form at ``chunk``, f32, under autograd: (outputs,
+    the leaves that were given, cotangents), for ``torch.autograd.grad``."""
+    leaves = [t.detach().clone().requires_grad_() if t is not None else None
+              for t in (xdt, a, B, C, h0)]
+    y, hf = ssm.ssd_chunked_plain(*leaves, chunk)
+    outs, cots = ((y, hf), (gy, gh)) if gh is not None else ((y,), (gy,))
+    return outs, [t for t in leaves if t is not None], cots
+
+
+def plain_vjp(xdt, a, B, C, h0, gy, gh, chunk):
+    """Autograd of the plain chunked form, f32, at ``chunk``: (dxdt, da,
+    dB, dC, dh0)."""
+    outs, wanted, cots = plain_vjp_graph(xdt, a, B, C, h0, gy, gh, chunk)
+    grads = list(torch.autograd.grad(outs, wanted, cots))
+    return tuple(grads) + ((None,) if h0 is None else ())
+
+
+def bf16_excess(got, want) -> tuple:
+    """(largest amount by which |got - want| exceeds the bf16 spacing at
+    |want| (2^(e - 7) in want's binade: one rounding of an exact value),
+    over max|want|; how many elements exceed it)."""
+    spacing = torch.exp2(torch.floor(torch.log2(
+        want.abs().clamp_min(1e-30))) - 7)
+    over = (got.double() - want).abs() - spacing
+    return (float(over.max()) / float(want.abs().max()),
+            int((over > 0).sum()))
+
+
+def ssd_bwd_bound_ms(xdt, B, h0, gh):
+    """Least time for one backward on each route: the bytes it must move
+    (x, a, B, C, gy and, where given, h0 and gh read once; dx, da, dB, dC
+    and dh0 written once) over the memory rate, or its least operations —
+    per position, head and state element one multiply-add each for the
+    state, dS, dx, dB, dC and da of the recurrent form, 12 * b * s * h * p *
+    n — over the peak rate of the units that do them; the larger. On the
+    tensor cores an f32-accurate multiply-add is three TF32 products (the
+    error-compensated split), two where one factor is bf16 (exact in TF32):
+    with bf16 B and C the state, dS and dx terms (each with a factor of B
+    or C) take two and dB, dC and da three. On the f32 CUDA cores (the
+    kernel's route) they run at 67 TFLOP/s. Returns {"tensor_cores": (ms,
+    by), "cuda_cores": (ms, by)}, as ``ssd_bound_ms`` does."""
+    b, s, h, p = xdt.shape
+    n = B.shape[-1]
+    state = b * h * p * n * 4
+    nbytes = (3 * xdt.numel() * 4 + 2 * b * s * h * 4
+              + 4 * b * s * n * B.element_size()
+              + state * (2 * (h0 is not None) + (gh is not None)))
+    terms = 2 * b * s * h * p * n      # one multiply-add of the six terms
+    products = (3 * 2 + 3 * 3) if B.dtype == torch.bfloat16 else 6 * 3
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    out = {}
+    for route, t_ops in (("tensor_cores", products * terms / TF32_PEAK),
+                         ("cuda_cores",
+                          6 * terms / PEAK_FLOPS[torch.float32])):
+        out[route] = (max(t_bytes, t_ops) * 1e3,
+                      "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def ssd_scan_backward_phase() -> dict:
+    """The backward kernel against its plain version and the plain chunked
+    form's VJP, each output's error measured against the plain version run
+    in float64: an f32 output within 4x the better plain f32 version's
+    error or 1e-5 x max|f64|, whichever is larger; a bf16 output (dB, dC of
+    bf16 B and C) within one bf16 spacing of the f64 value (one rounding of
+    an f32 result to bf16) plus 1e-5 x max|f64| (the f32 result's own
+    error, as the f32 limit's floor). Two calls give equal bits. Then device time
+    (CUDA graph) at the train and serving shapes beside the bound, the
+    plain version's graph time and the plain chunked VJP's elapsed time."""
+    max_err, failed = 0.0, []
+    for i, (shape, bc_dtype, with_h0, with_gh, odd) in enumerate(
+            SSD_BWD_CASES):
+        ins = ssd_bwd_case(shape, bc_dtype, 50 + i, with_h0, with_gh, odd)
+        got = SSD.ssd_scan_backward(*ins)
+        torch.cuda.synchronize()
+        again = SSD.ssd_scan_backward(*ins)
+        check(all(g is None and r is None or torch.equal(g, r)
+                  for g, r in zip(got, again)),
+              f"ssd_scan_backward: two calls differ at {shape}")
+        plain = ssd_scan_backward_ref(*ins)
+        vjp = plain_vjp(*ins, shape[-1])
+        want = ssd_scan_backward_ref(*(
+            t.double() if t is not None and t.dtype == torch.float32 else t
+            for t in ins))
+        line = []
+        for name, g, r, v, w in zip(GRAD_NAMES, got, plain, vjp, want):
+            if g is None:
+                continue
+            errs = [float((t.double() - w).abs().max()) for t in (g, r, v)]
+            scale = float(w.abs().max())
+            if g.dtype == torch.bfloat16:
+                over, count = zip(*(bf16_excess(t, w) for t in (g, r, v)))
+                line.append(f"{name} {errs[0]:.3e} (plain {errs[1]:.3e}, VJP "
+                            f"{errs[2]:.3e}; beyond one bf16 spacing "
+                            f"{over[0]:+.2e} x max|f64|, plain "
+                            f"{over[1]:+.2e}, VJP {over[2]:+.2e}, limit "
+                            f"1e-5; elements beyond one spacing {count[0]} "
+                            f"of {w.numel()}, plain {count[1]}, VJP "
+                            f"{count[2]})")
+                ok = over[0] <= 1e-5
+            else:
+                limit = max(4 * min(errs[1], errs[2]), 1e-5 * scale)
+                line.append(f"{name} {errs[0]:.3e} (plain {errs[1]:.3e}, "
+                            f"VJP {errs[2]:.3e}, limit {limit:.3e})")
+                ok = errs[0] <= limit
+                max_err = max(max_err, errs[0])
+            if not (ok and math.isfinite(errs[0])):
+                failed.append(f"{name} at {shape} B/C {bc_dtype}")
+        print(f"ssd_scan_backward check {shape} B/C {bc_dtype} h0={with_h0} "
+              f"gh={with_gh}{' unaligned rows' if odd else ''}: max_abs_err "
+              f"vs f64 — " + "; ".join(line), flush=True)
+    check(not failed, f"ssd_scan_backward outside its limit: {failed}")
+    print("ssd_scan_backward: two calls bit-identical at every case")
+    out = {}
+    for label, shape in (("train", SSD_TRAIN), ("serving", SSD_SERVE)):
+        sets = [ssd_bwd_case(shape, torch.bfloat16, 150 + j, False, False,
+                             False) for j in range(2)]
+        ms = graph_ms(SSD.ssd_scan_backward, sets)
+        plain_ms = graph_ms(ssd_scan_backward_ref, sets, reps=5)
+        outs, wanted, cots = plain_vjp_graph(*sets[0], shape[-1])
+        vjp_ms = events_ms(lambda: torch.autograd.grad(
+            outs, wanted, cots, retain_graph=True), n=5)
+        bounds = ssd_bwd_bound_ms(sets[0][0], sets[0][2], None, None)
+        (bms, by), (cms, cby) = bounds["tensor_cores"], bounds["cuda_cores"]
+        grid = SSD.backward_grid(*shape[:5])
+        print(f"ssd_scan_backward at {label} shape {shape[:5]}, B/C bf16, no "
+              f"h0, no gh: device time (CUDA graph) {ms * 1e3:.2f} us; bound "
+              f"on the tensor cores {bms * 1e3:.2f} us ({by}), "
+              f"{100 * bms / ms:.1f}% of it reached; on the f32 CUDA cores "
+              f"(the kernel's route) {cms * 1e3:.2f} us ({cby}), "
+              f"{100 * cms / ms:.1f}%; plain version {plain_ms * 1e3:.2f} us "
+              f"(CUDA graph); plain chunked VJP at chunk {shape[-1]} "
+              f"{vjp_ms * 1e3:.2f} us (CUDA events, eager); grid "
+              f"{json.dumps(grid)}")
+        out[label] = {"ms": ms, "plain_ms": plain_ms, "plain_vjp_ms": vjp_ms,
+                      "bound_ms": bms, "bound_by": by,
+                      "bound_cuda_cores_ms": cms, "grid_blocks": grid}
+    t = out["train"]
+    return {"name": "ssd_scan_backward", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+            "replaces": "none: the gradient of "
+                        "src/repro/kernels/ssd_scan.py:23, which the "
+                        "reference takes by jax.grad of "
+                        "src/repro/models/ssm.py:66",
+            "max_abs_err": max_err, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            "bound_cuda_cores_ms": t["bound_cuda_cores_ms"],
+            "shape": "train (b 4, s 256, h 24, p 64, n 128, bf16 B and C)",
+            "plain_vjp_ms": t["plain_vjp_ms"],
+            "serving_shape": out["serving"]}
 
 
 # -- 7.-12. serving, failover and decode profile, per pool --------------------
@@ -3343,16 +3546,18 @@ def train_history(card, cfg, history) -> list:
 def step_profile(card, label, step, tokens, scan=False) -> dict:
     """One train step (``step()``) profiled: wall (synchronised host clock),
     device busy (torch.profiler's kernel time), idle share, kernel
-    launches, tokens per second; with ``scan``, the ssd_scan kernels'
-    device time in the step too."""
+    launches, tokens per second; with ``scan``, the device time in the step
+    of the ssd_scan forward kernels (names holding "ssd_scan") and of the
+    backward's (names holding "ssd_bwd"), each on its own."""
     wall, busy, launches, kernels = profile_device(step, 2)
     m = {"wall_ms": wall, "device_busy_ms": busy,
          "device_idle_share": 1 - busy / wall if busy else None,
          "kernel_launches": launches, "tok_per_s": tokens / wall * 1e3}
     if scan:
-        m["ssd_scan_forward_kernel_ms"] = sum(
-            e.self_device_time_total for e in kernels
-            if "ssd_scan" in e.key) / 2 / 1e3
+        for what, key in (("forward", "ssd_scan"), ("backward", "ssd_bwd")):
+            m[f"ssd_scan_{what}_kernel_ms"] = sum(
+                e.self_device_time_total for e in kernels
+                if key in e.key) / 2 / 1e3
     print(f"train step profile {label} [{card}]: " + json.dumps(m))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
         print(f"  device ms/step {e.self_device_time_total / 2 / 1e3:8.3f}"
@@ -3454,9 +3659,11 @@ def step_breakdown(card, cfg, params, batch):
 
 
 def scan_backward_ms(shape) -> dict:
-    """At (b, s, h, p, n, chunk): device time of one ``SSDScan`` forward
-    (the kernel) and of its backward (the plain chunked form's VJP), each
-    by CUDA events over 10 eager calls."""
+    """At (b, s, h, p, n, chunk): elapsed time of one eager ``SSDScan``
+    forward and of its backward (``SSDScan.backward``: autograd, the
+    wrapper and its two kernels, host gaps included), each by CUDA events
+    over 10 calls; the backward is a forward and backward less the
+    forward."""
     xdt, a, B, C, _ = ssd_case(shape, torch.bfloat16, seed=7)
     chunk = shape[-1]
     leaves = [t.detach().requires_grad_() for t in (xdt, a, B, C)]
@@ -3469,14 +3676,15 @@ def scan_backward_ms(shape) -> dict:
         torch.autograd.backward((y, hf), (gy, gh))
 
     both = events_ms(backward)
-    return {"forward_kernel_ms": fwd, "backward_vjp_ms": both - fwd}
+    return {"forward_eager_ms": fwd, "backward_eager_ms": both - fwd}
 
 
 def train_mamba2_phase(card: str) -> dict:
     """Full-width mamba2-130m trained through ``train()`` with the
     reference launcher's settings; the gradient through the scan kernel
     held against the plain path's; a checkpoint round trip; a step
-    profile; the launcher. Returns the scan kernel's launches and times."""
+    profile; the launcher. Returns the scan kernels' launches (forward and
+    backward) and SSDScan's backward time at the train shape."""
     cfg = get_config("mamba2-130m")
     params = api.init_params(cfg, torch.Generator(device="cuda")
                              .manual_seed(0), device="cuda")
@@ -3494,6 +3702,7 @@ def train_mamba2_phase(card: str) -> dict:
     dcfg = TD.DataConfig(**TRAIN_DATA)
     torch.cuda.synchronize()
     SSD.launches = ssm.plain_scans = ssm.backward_scans = 0
+    SSD.backward_launches = ssm.plain_backward_scans = 0
     t0 = time.perf_counter()
     out = TL.train(cfg, dcfg, TO.OptimizerConfig(warmup_steps=20,
                                                  total_steps=steps),
@@ -3502,16 +3711,27 @@ def train_mamba2_phase(card: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, plain, back = SSD.launches, ssm.plain_scans, ssm.backward_scans
+    back_launches, plain_back = SSD.backward_launches, \
+        ssm.plain_backward_scans
     want = steps * SCAN_FORWARDS_PER_LAYER[True] * cfg.n_layers \
         * SSD.KERNELS_PER_CALL
+    want_back = steps * cfg.n_layers * SSD.KERNELS_PER_BACKWARD
     print(f"[train {cfg.name}] {steps} steps in {wall:.1f} s; ssd_scan "
           f"launches {launches} (want {want}: {steps} steps x "
           f"{SCAN_FORWARDS_PER_LAYER[True]} forwards (remat) x "
           f"{cfg.n_layers} layers x {SSD.KERNELS_PER_CALL} kernels); plain "
-          f"forward scans {plain}; backward passes through SSDScan {back}")
+          f"forward scans {plain}; backward passes through SSDScan {back}; "
+          f"ssd_scan_backward launches {back_launches} (want {want_back}: "
+          f"{steps} steps x {cfg.n_layers} layers x "
+          f"{SSD.KERNELS_PER_BACKWARD} kernels); plain backward scans "
+          f"{plain_back}")
     check(launches == want, "ssd_scan launches on the training path")
     check(plain == 0, "a plain forward scan ran on the card's training path")
     check(back == steps * cfg.n_layers, "SSDScan backward passes")
+    check(back_launches == want_back,
+          "ssd_scan_backward launches on the training path")
+    check(plain_back == 0,
+          "a plain backward scan ran on the card's training path")
     train_history(card, cfg, out["history"])
     params = out["params"]
 
@@ -3528,10 +3748,13 @@ def train_mamba2_phase(card: str) -> dict:
 
     want = grads_at(GRAD_CHECK_PLAIN_CHUNK, plain=True)
     for chunk in GRAD_CHECK_CHUNKS:
-        SSD.launches = 0
+        SSD.launches = SSD.backward_launches = 0
         got = grads_at(chunk, plain=False)
         check(SSD.launches == cfg.n_layers * SSD.KERNELS_PER_CALL,
               "the gradient check's forward launches")
+        check(SSD.backward_launches
+              == cfg.n_layers * SSD.KERNELS_PER_BACKWARD,
+              "the gradient check's backward launches")
         worst = grad_errors(cfg, paths, got, want,
                             f"scan kernel's Function at chunk {chunk} vs the "
                             f"plain chunked form at chunk "
@@ -3581,25 +3804,24 @@ def train_mamba2_phase(card: str) -> dict:
                                     nst, cfg.ssm_chunk)),
                          ("serving", SSD_SERVE)):
         times[label] = scan_backward_ms(shape)
-        print(f"[train {cfg.name}] SSDScan at {label} shape {shape}: "
-              f"forward (kernel) {times[label]['forward_kernel_ms'] * 1e3:.2f}"
-              f" us, backward (plain chunked VJP) "
-              f"{times[label]['backward_vjp_ms'] * 1e3:.2f} us (CUDA events, "
-              f"eager) [{card}]")
-    per_step = times["train"]["backward_vjp_ms"] * cfg.n_layers
+        print(f"[train {cfg.name}] SSDScan at {label} shape {shape}, "
+              f"elapsed per eager call (CUDA events, host gaps included): "
+              f"forward {times[label]['forward_eager_ms'] * 1e3:.2f} us, "
+              f"backward (SSDScan.backward) "
+              f"{times[label]['backward_eager_ms'] * 1e3:.2f} us [{card}]")
+    per_step = times["train"]["backward_eager_ms"] * cfg.n_layers
     print(f"[train {cfg.name}] backward scans per step, elapsed (CUDA "
           f"events, launch gaps included): {cfg.n_layers} x "
-          f"{times['train']['backward_vjp_ms']:.3f} ms = {per_step:.2f} ms, "
-          f"{100 * per_step / prof['wall_ms']:.1f}% of the step's wall")
+          f"{times['train']['backward_eager_ms']:.3f} ms = {per_step:.2f} ms,"
+          f" {100 * per_step / prof['wall_ms']:.1f}% of the step's wall")
     del opt_state, batch, out, params
     free()
     res = subprocess_python("repro_torch.launch.train", "--arch", cfg.name,
                             "--steps", "20")
     check(res.returncode == 0 and "final loss:" in res.stdout,
           "the train launcher failed")
-    return {"launches": launches, "backward_ms": times["serving"][
-        "backward_vjp_ms"], "forward_eager_ms": times["serving"][
-        "forward_kernel_ms"]}
+    return {"launches": launches, "backward_launches": back_launches,
+            "backward_eager_ms": times["train"]["backward_eager_ms"]}
 
 
 def train_qwen_phase(card: str) -> int:
@@ -3701,9 +3923,9 @@ def train_hubert_phase(card: str):
 
 
 def train_phases(card: str) -> dict:
-    """Phases 29-31. Returns the scan kernel's launches on the training
-    path, the attention kernel's in the serve launcher's reduced-size run,
-    and the scan's backward time."""
+    """Phases 29-31. Returns the scan kernels' launches on the training
+    path (forward and backward), the attention kernel's in the serve
+    launcher's reduced-size run, and SSDScan's backward time."""
     phase("train mamba2-130m")
     mamba = train_mamba2_phase(card)
     phase("train qwen1.5-0.5b")
@@ -3713,8 +3935,9 @@ def train_phases(card: str) -> dict:
     print("internvl2-76b (70.6 B params) does not fit one card for training;"
           " it runs reduced in the CPU tests")
     return {"ssd_scan": mamba["launches"],
+            "ssd_scan_backward": mamba["backward_launches"],
             "serve_launcher_paged_attention": pa,
-            "ssd_scan_backward_ms": mamba["backward_ms"]}
+            "ssd_scan_backward_eager_ms": mamba["backward_eager_ms"]}
 
 
 # -- 32.-33. dry run ----------------------------------------------------------
@@ -3893,14 +4116,15 @@ def train_only(card: str) -> int:
 
 
 def build_all():
-    """The three kernel libraries from source, one nvcc process per source,
-    all started together."""
+    """The four kernel libraries from source (paged attention on bf16 and
+    int8 pools, the SSD scan and its backward), one nvcc process per
+    source, all started together."""
     t0 = time.perf_counter()
-    mods = (PA, PA8, SSD)
-    with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
-        libs = list(pool.map(lambda m: m.build(), mods))   # re-raises
-    for m, lib in zip(mods, libs):
-        secs = m.build_seconds
+    kls = (PA.LIB, PA8.LIB, SSD.LIB, SSD.LIB_BWD)
+    with concurrent.futures.ThreadPoolExecutor(len(kls)) as pool:
+        libs = list(pool.map(lambda k: k.build(), kls))   # re-raises
+    for k, lib in zip(kls, libs):
+        secs = k.build_seconds
         print(f"built {os.path.relpath(lib, ROOT)} in "
               f"{secs:.1f} s" if secs is not None else
               f"{os.path.relpath(lib, ROOT)} already built")
@@ -3970,19 +4194,23 @@ def main() -> int:
             ptxas.wait()
     phase("kernel (ssd_scan)")
     entries.append(ssd_scan_phase())
+    phase("kernel (ssd_scan backward)")
+    entries.append(ssd_scan_backward_phase())
 
     launches = serving_phases(card)
     phase("mamba2 generation")
     launches["ssd_scan"] = mamba2_phase(card)
     trained = train_phases(card)
     launches["ssd_scan"] += trained["ssd_scan"]
+    launches["ssd_scan_backward"] = trained["ssd_scan_backward"]
     phase("dry run grounded on the card")
     grounding_phase(card)
     for e in entries:
         e["launches"] = launches[e["name"]]
-        if e["name"] == "ssd_scan":
-            # the gradient's backward: the plain chunked form's VJP
-            e["backward_ms"] = trained["ssd_scan_backward_ms"]
+        if e["name"] == "ssd_scan_backward":
+            # SSDScan's backward alone at the train shape, eager (phase 29)
+            e["function_backward_eager_ms"] = trained[
+                "ssd_scan_backward_eager_ms"]
         if e["name"] == "paged_attention":
             # the serve launcher's run, at the reduced size its 3e8 rule
             # gives qwen1.5-0.5b: kept apart from the full-width count

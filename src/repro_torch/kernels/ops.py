@@ -53,3 +53,14 @@ def ssd_scan(xdt, a, B, C, chunk: int = 64, h0=None):
     if xdt.device.type == "cpu":
         return ref.ssd_scan_ref(xdt, a, B, C, h0)
     return _ssd.ssd_scan(xdt, a, B, C, chunk=chunk, h0=h0)
+
+
+def ssd_scan_backward(xdt, a, B, C, h0, gy, gh):
+    """Gradients of ``ssd_scan`` for xdt, a, B, C and h0, given gy (the
+    gradient of y) and gh (of the final state; None = 0). Returns (dxdt,
+    da, dB, dC, dh0), each in its input's dtype, dh0 None when h0 is None.
+    See ``kernels/ssd_scan.py``."""
+    assert xdt.ndim == 4 and a.ndim == 3 and B.ndim == 3 and C.ndim == 3
+    if xdt.device.type == "cpu":
+        return ref.ssd_scan_backward_ref(xdt, a, B, C, h0, gy, gh)
+    return _ssd.ssd_scan_backward(xdt, a, B, C, h0, gy, gh)

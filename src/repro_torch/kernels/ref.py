@@ -84,3 +84,92 @@ def ssd_scan_ref(xdt, a, B, C, h0=None):
             xt[..., None] * Bt[:, None, None, :]
         ys.append(torch.einsum("bhpn,bn->bhp", state, Ct))
     return torch.stack(ys, dim=1), state
+
+
+SSD_SUB_CHUNK = 32      # positions per sub-chunk of the backward kernel
+
+
+def ssd_scan_backward_ref(xdt, a, B, C, h0, gy, gh=None):
+    """Backward of the SSD scan as the kernel (``csrc/ssd_scan_bwd.cu``)
+    takes it, over sub-chunks of ``SSD_SUB_CHUNK`` positions, in torch ops
+    (no autograd): a state pass keeps the state entering each sub-chunk,
+    then a reverse walk carries dS, the gradient into the state leaving the
+    sub-chunk. Per sub-chunk, with cum the cumulative log decay inside it,
+    L[i, j] = exp(cum_i - cum_j) (j <= i) and e = exp(total - cum):
+
+      G = (C B^T) o L,   M = (gy x^T) o L
+      dx  = diag(e) B dS^T + G^T gy         dB = sum_h diag(e) x dS + M^T C
+      dC  = sum_h diag(exp(cum)) gy S_in + M B
+      dcum = gy . y - x . dx  (+ <S_out, dS> at the last position), and da
+      its reverse cumulative sum in the sub-chunk; gy . y = C . dC_h
+      dS  <- exp(total) dS + (diag(exp(cum)) gy)^T C   (dh0 after the first)
+
+    xdt: (b, s, h, p); a: (b, s, h); B, C: (b, s, n); h0: (b, h, p, n) or
+    None (0); gy: (b, s, h, p) and gh: (b, h, p, n) or None (0), the
+    gradients of y and of the final state. Computes in f32 (f64 kept) and
+    returns (dxdt, da, dB, dC, dh0), each in its input's dtype (dh0 None
+    when h0 is None)."""
+    b, s, h, p = xdt.shape
+    n = B.shape[-1]
+    dt = torch.float64 if xdt.dtype == torch.float64 else torch.float32
+    q = SSD_SUB_CHUNK
+    pad = -s % q
+    c = (s + pad) // q
+
+    def chunks(t, *tail):           # zero-padded, (c, b, q, *tail) in dt
+        t = t.to(dt)
+        if pad:
+            t = torch.cat([t, t.new_zeros((b, pad, *tail))], 1)
+        return t.reshape(b, c, q, *tail).transpose(0, 1)
+
+    x, ac, Bc, Cc, gyc = (chunks(xdt, h, p), chunks(a, h), chunks(B, n),
+                          chunks(C, n), chunks(gy, h, p))
+    cum = torch.cumsum(ac, 2)                               # (c, b, q, h)
+    total = cum[:, :, -1]                                   # (c, b, h)
+    e = torch.exp(total[:, :, None] - cum)
+    ecum = torch.exp(cum)
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+
+    # state pass: the state entering every sub-chunk
+    state = (torch.zeros((b, h, p, n), dtype=dt, device=x.device)
+             if h0 is None else h0.to(dt))
+    s_in = []
+    for ci in range(c):
+        s_in.append(state)
+        state = state * torch.exp(total[ci])[..., None, None] + torch.einsum(
+            "bjhp,bjh,bjn->bhpn", x[ci], e[ci], Bc[ci])
+
+    # reverse walk
+    dS = (torch.zeros_like(state) if gh is None else gh.to(dt))
+    bdot = (state * dS).sum((-2, -1))                       # (b, h)
+    dx, da, dB, dC = [], [], [], []
+    for ci in reversed(range(c)):
+        diff = cum[ci].transpose(1, 2)[..., :, None] - \
+            cum[ci].transpose(1, 2)[..., None, :]           # (b, h, i, j)
+        L = torch.where(tri, torch.exp(torch.where(tri, diff, 0)), 0)
+        G = torch.einsum("bin,bjn->bij", Cc[ci], Bc[ci])[:, None] * L
+        M = torch.einsum("bihp,bjhp->bhij", gyc[ci], x[ci]) * L
+        dxc = e[ci][..., None] * torch.einsum("btn,bhpn->bthp", Bc[ci], dS) \
+            + torch.einsum("bhit,bihp->bthp", G, gyc[ci])
+        dBh = e[ci][..., None] * torch.einsum("bthp,bhpn->bthn", x[ci], dS) \
+            + torch.einsum("bhit,bin->bthn", M, Cc[ci])
+        dCh = ecum[ci][..., None] * torch.einsum("bihp,bhpn->bihn", gyc[ci],
+                                                 s_in[ci]) \
+            + torch.einsum("bhij,bjn->bihn", M, Bc[ci])
+        dcum = torch.einsum("bin,bihn->bih", Cc[ci], dCh) - \
+            (x[ci] * dxc).sum(-1)                            # (b, q, h)
+        dcum[:, -1] += bdot
+        da.append(torch.flip(torch.cumsum(torch.flip(dcum, [1]), 1), [1]))
+        dx.append(dxc)
+        dB.append(dBh.sum(2))
+        dC.append(dCh.sum(2))
+        dS = torch.exp(total[ci])[..., None, None] * dS + torch.einsum(
+            "bihp,bih,bin->bhpn", gyc[ci], ecum[ci], Cc[ci])
+        bdot = (s_in[ci] * dS).sum((-2, -1))
+
+    def joined(parts, like):        # sub-chunks in order, padding cut
+        out = torch.stack(parts[::-1], 1)
+        return out.reshape(b, c * q, *out.shape[3:])[:, :s].to(like.dtype)
+
+    return (joined(dx, xdt), joined(da, a), joined(dB, B), joined(dC, C),
+            None if h0 is None else dS.to(h0.dtype))

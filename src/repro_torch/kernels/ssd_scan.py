@@ -23,6 +23,14 @@ CUDA graph.
 ``launches`` counts the CUDA kernels launched through ``ssd_scan``
 (``KERNELS_PER_CALL`` per call); a run sets it to 0 and reads it back to
 show that a path went through the kernels.
+
+The gradient is a second library, ``csrc/ssd_scan_bwd.cu`` (its header
+comment gives the design and the bound), built the same way into
+``build/kernels/libssd_scan_bwd-<hash>.so``: ``ssd_scan_backward`` launches
+its two kernels (a state pass and reverse walk per (P tile, head, batch),
+then an ordered sum of the per-block partials), takes what the forward
+takes, and counts them in ``backward_launches`` (``KERNELS_PER_BACKWARD``
+per call).
 """
 from __future__ import annotations
 
@@ -38,6 +46,8 @@ MAX_STATE = 256           # largest state dim N (csrc: kMaxN)
 
 launches = 0
 KERNELS_PER_CALL = 2      # the C Bᵀ pass and the scan
+backward_launches = 0
+KERNELS_PER_BACKWARD = 2  # the state pass and reverse walk, the partials' sum
 
 
 def _bind(lib):
@@ -56,9 +66,26 @@ def _bind(lib):
         getattr(lib, fn).restype = i32
 
 
+def _bind_bwd(lib):
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ssd_scan_bwd_launch.argtypes = [ptr] * 13 + [i32] * 5 + [i64] * 4 + \
+        [i32, ptr]
+    lib.ssd_scan_bwd_launch.restype = i32
+    lib.ssd_scan_bwd_scratch_floats.argtypes = [i32] * 5
+    lib.ssd_scan_bwd_scratch_floats.restype = i64
+    lib.ssd_scan_bwd_smem_bytes.argtypes = [i32]
+    lib.ssd_scan_bwd_smem_bytes.restype = i64
+    lib.ssd_scan_bwd_blocks_per_sm.argtypes = [i32, i32]
+    lib.ssd_scan_bwd_blocks_per_sm.restype = i32
+    lib.ssd_scan_bwd_p_tile.argtypes = []
+    lib.ssd_scan_bwd_p_tile.restype = i32
+
+
 LIB = KernelLibrary("ssd_scan", _bind)
+LIB_BWD = KernelLibrary("ssd_scan_bwd", _bind_bwd)
 build = LIB.build         # compile the library if this source is not built yet
 _library = LIB.load       # built and bound once; later calls return it
+_library_bwd = LIB_BWD.load
 
 
 def __getattr__(attr):
@@ -68,7 +95,7 @@ def __getattr__(attr):
     raise AttributeError(f"module {__name__!r} has no attribute {attr!r}")
 
 
-def _check(xdt, a, B, C, h0, chunk):
+def _check(xdt, a, B, C, h0, chunk=None, more=()):
     if xdt.ndim != 4 or a.ndim != 3 or B.ndim != 3 or C.ndim != 3:
         raise ValueError("ssd_scan takes xdt (b,s,h,p), a (b,s,h), "
                          "B and C (b,s,n)")
@@ -91,10 +118,10 @@ def _check(xdt, a, B, C, h0, chunk):
     if n > MAX_STATE:
         raise ValueError(f"state dim {n} is over {MAX_STATE}, the most the "
                          "kernel's register-held state takes")
-    if s == 0 or chunk <= 0 or s % chunk:
+    if s == 0 or chunk is not None and (chunk <= 0 or s % chunk):
         raise ValueError(f"seq {s} is not a positive multiple of chunk "
                          f"{chunk}")
-    tensors = [xdt, a, B, C] + ([h0] if h0 is not None else [])
+    tensors = [t for t in (xdt, a, B, C, h0, *more) if t is not None]
     if any(t.device.type != "cuda" or t.device != xdt.device
            for t in tensors):
         raise ValueError("ssd_scan's CUDA kernel needs every tensor on one "
@@ -187,3 +214,86 @@ def grid_blocks(b: int, s: int, h: int, p: int, n: int,
             "scan_smem_bytes": lib.ssd_scan_smem_bytes(
                 n, _BC_DTYPES[bc_dtype]),
             "scan_blocks_per_sm": per_sm}
+
+
+def ssd_scan_backward(xdt, a, B, C, h0, gy, gh):
+    """Gradients of ``ssd_scan`` (any chunk: the result does not depend on
+    it) for the inputs xdt, a, B, C, h0 of a call, given gy (b, s, h, p)
+    f32 and gh (b, h, p, n) f32 or None (0), the gradients of y and of the
+    final state. Returns (dxdt, da, dB, dC, dh0), each in its input's dtype
+    (dh0 None when h0 is None). Launches the two CUDA kernels on the current
+    stream; raises on any input the kernels do not take (as ``ssd_scan``
+    does) and when a launch fails."""
+    global backward_launches
+    _check(xdt, a, B, C, h0, more=(gy, gh))
+    if gy.dtype != torch.float32 or gy.shape != xdt.shape:
+        raise ValueError(f"gy must be float32 {tuple(xdt.shape)}, not "
+                         f"{gy.dtype} {tuple(gy.shape)}")
+    b, s, h, p = xdt.shape
+    n = B.shape[-1]
+    if gh is not None and (gh.dtype != torch.float32
+                           or gh.shape != (b, h, p, n)):
+        raise ValueError(f"gh must be float32 {(b, h, p, n)}, not "
+                         f"{gh.dtype} {tuple(gh.shape)}")
+    lib = _library_bwd()
+    xdt, a, B, C, h0 = kernel_operands(xdt, a, B, C, h0)
+    pk, nk = xdt.shape[-1], B.shape[-1]
+    gy, gh = backward_operands(gy, gh, pk, nk)
+    dev = xdt.device
+    dx = torch.empty((b, s, h, pk), dtype=torch.float32, device=dev)
+    da = torch.empty((b, s, h), dtype=torch.float32, device=dev)
+    dB = torch.empty((b, s, nk), dtype=B.dtype, device=dev)
+    dC = torch.empty((b, s, nk), dtype=B.dtype, device=dev)
+    dh0 = (torch.empty((b, h, pk, nk), dtype=torch.float32, device=dev)
+           if h0 is not None else None)
+    scratch = torch.empty(lib.ssd_scan_bwd_scratch_floats(b, s, h, pk, nk),
+                          dtype=torch.float32, device=dev)
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    rc = lib.ssd_scan_bwd_launch(
+        xdt.data_ptr(), a.data_ptr(), B.data_ptr(), C.data_ptr(), ptr(h0),
+        gy.data_ptr(), ptr(gh), dx.data_ptr(), da.data_ptr(), dB.data_ptr(),
+        dC.data_ptr(), ptr(dh0), scratch.data_ptr(), b, s, h, pk, nk,
+        B.stride(0), B.stride(1), C.stride(0), C.stride(1),
+        _BC_DTYPES[B.dtype], torch.cuda.current_stream(dev).cuda_stream)
+    if rc < 0:
+        raise RuntimeError(f"ssd_scan_backward launch failed: CUDA error "
+                           f"{-rc}")
+    backward_launches += rc
+    if (pk, nk) != (p, n):
+        dx, dB, dC = (dx[..., :p].contiguous(), dB[..., :n].contiguous(),
+                      dC[..., :n].contiguous())
+        if dh0 is not None:
+            dh0 = dh0[:, :, :p, :n].contiguous()
+    return dx, da, dB, dC, dh0
+
+
+def backward_operands(gy, gh, pk, nk):
+    """gy and gh as the backward kernel takes them: gy padded with zero
+    columns to ``pk`` state rows, contiguous, on 16 bytes; gh padded with
+    zeros to (pk, nk) and contiguous. Zero gradients on the padded rows and
+    columns of the state leave every other gradient as it is."""
+    dp = pk - gy.shape[-1]
+    if dp:
+        gy = F.pad(gy, (0, dp))
+    if gh is not None:
+        dn = nk - gh.shape[-1]
+        gh = (F.pad(gh, (0, dn, 0, dp)) if dp or dn else gh).contiguous()
+    return _rows16(gy.contiguous()), gh
+
+
+def backward_grid(b: int, s: int, h: int, p: int, n: int,
+                  bc_dtype=torch.bfloat16) -> dict:
+    """Thread blocks of one backward call: the reverse walk (one per P tile
+    of 32 rows, head and batch row), with its shared memory per block and
+    the blocks one SM holds at once, and the scratch it needs."""
+    lib = _library_bwd()
+    pk, nk = -(-p // 4) * 4, -(-n // 8) * 8
+    per_sm = lib.ssd_scan_bwd_blocks_per_sm(nk, _BC_DTYPES[bc_dtype])
+    if per_sm < 0:
+        raise RuntimeError(f"ssd_scan_backward occupancy query failed: CUDA "
+                           f"error {-per_sm}")
+    return {"walk": b * h * -(-pk // lib.ssd_scan_bwd_p_tile()),
+            "walk_smem_bytes": lib.ssd_scan_bwd_smem_bytes(nk),
+            "walk_blocks_per_sm": per_sm,
+            "scratch_bytes": 4 * lib.ssd_scan_bwd_scratch_floats(
+                b, s, h, pk, nk)}

@@ -5,11 +5,14 @@ Forward and prefill run the chunked SSD scan: on the card through the
 hand-written CUDA kernels (``kernels/ssd_scan.py``, one call per layer,
 wrapped in the autograd Function ``SSDScan``), on the CPU through the plain
 chunked form in torch ops. Training takes its gradient through ``SSDScan``:
-the forward is the kernel, the backward the vector-Jacobian product of the
-plain chunked form on the saved inputs (the reference trains through
-autodiff of its jnp chunked form; its Pallas kernel has no backward). Decode
-runs the O(1) recurrent form. The recurrent state, not a KV cache, is this
-family's decode state. Params keep the reference's layer-stacked layout.
+the forward is the kernel, the backward the hand-written backward kernel
+(``kernels/ssd_scan.py`` ``ssd_scan_backward``) on the saved inputs, its
+plain version (``kernels/ref.py``) on a CPU tensor (the reference trains
+through autodiff of its jnp chunked form; its Pallas kernel has no
+backward). The CPU path of ``ssd_chunked`` differentiates the plain chunked
+form by autograd. Decode runs the O(1) recurrent form. The recurrent state,
+not a KV cache, is this family's decode state. Params keep the reference's
+layer-stacked layout.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from repro_torch.distributed import layout as ML
 from repro_torch.kernels import ops
@@ -29,10 +33,12 @@ from repro_torch.models.transformer import layer_params, unstacked
 CONV_STATE_DTYPE = torch.bfloat16
 
 # forward scans run by a plain version instead of the kernel (a CPU
-# tensor's), and backward passes through ``SSDScan``, each counted where it
-# runs; a run sets them to 0 and reads them back
+# tensor's), backward passes through ``SSDScan``, and those of them taken by
+# the plain version (a CPU tensor's), each counted where it runs; a run sets
+# them to 0 and reads them back
 plain_scans = 0
 backward_scans = 0
+plain_backward_scans = 0
 
 
 # --------------------------------------------------------------------------
@@ -117,9 +123,9 @@ def _pad_to_chunk(xdt, a, B, C, chunk):
 
 def ssd_chunked_plain(xdt, a, B, C, h0=None, chunk: int = 256):
     """The chunked SSD scan in plain torch ops, on any device: the reference
-    ``ssd_chunked`` line for line. The CPU path of ``ssd_chunked``; on the
-    card ``SSDScan``'s backward differentiates it, and the comparisons with
-    the kernel use it."""
+    ``ssd_chunked`` line for line. The CPU path of ``ssd_chunked`` (trained
+    through autograd), and the yardstick that the comparisons with the
+    kernel and its gradient use."""
     s_orig = xdt.shape[1]
     xdt, a, B, C, chunk = _pad_to_chunk(xdt, a, B, C, chunk)
     b, s, h, p = xdt.shape
@@ -163,35 +169,38 @@ class SSDScan(torch.autograd.Function):
     """The ``ssd_scan`` kernel (through ``ops.ssd_scan``) with a gradient.
 
     ``forward`` launches the kernel (on a CPU tensor, its plain version);
-    ``backward`` recomputes the plain chunked form on the saved inputs
-    under autograd and returns its vector-Jacobian product for xdt, a, B,
-    C and h0, each in its input's dtype. ``apply(xdt, a, B, C, h0, chunk)``
-    with ``s`` a multiple of ``chunk`` -> (y, h_final)."""
+    ``backward`` launches the backward kernel on the saved inputs (on a CPU
+    tensor, its plain version; through ``ops.ssd_scan_backward``) and
+    returns the gradients that ``needs_input_grad`` asks for among xdt, a,
+    B, C and h0, each in its input's dtype. An unused h_final passes no
+    gradient (None), which the kernel takes as 0 without reading it. The
+    backward is not itself differentiable. ``apply(xdt, a, B, C, h0,
+    chunk)`` with ``s`` a multiple of ``chunk`` -> (y, h_final)."""
 
     @staticmethod
     def forward(ctx, xdt, a, B, C, h0, chunk):
         global plain_scans
         if xdt.device.type == "cpu":                # ops' plain version
             plain_scans += 1
-        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
         ctx.save_for_backward(xdt, a, B, C, h0)
         return ops.ssd_scan(xdt, a, B, C, chunk=chunk, h0=h0)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, gy, gh):
-        global backward_scans
+        global backward_scans, plain_backward_scans
         backward_scans += 1
-        saved = ctx.saved_tensors
-        needs = ctx.needs_input_grad[:5]
-        with torch.enable_grad():
-            leaves = [None if t is None else t.detach().requires_grad_(n)
-                      for t, n in zip(saved, needs)]
-            y, hf = ssd_chunked_plain(*leaves, ctx.chunk)
-            wanted = [t for t, n in zip(leaves, needs) if n]
-            grads = iter(torch.autograd.grad((y, hf), wanted, (gy, gh),
-                                             allow_unused=True))
-        out = [next(grads) if n else None for n in needs]
-        return (*out, None)
+        xdt, a, B, C, h0 = ctx.saved_tensors
+        if xdt.device.type == "cpu":                # ops' plain version
+            plain_backward_scans += 1
+        if gy is None:                              # y unused
+            gy = torch.zeros(xdt.shape, device=xdt.device, dtype=(
+                torch.float64 if xdt.dtype == torch.float64
+                else torch.float32))
+        grads = ops.ssd_scan_backward(xdt, a, B, C, h0, gy, gh)
+        return (*(g if need else None for g, need in
+                  zip(grads, ctx.needs_input_grad[:5])), None)
 
 
 def ssd_chunked(xdt, a, B, C, h0=None, chunk: int = 256):

@@ -21,7 +21,8 @@ from repro_torch.kernels import paged_attention as PA  # noqa: E402
 from repro_torch.kernels import paged_attention_int8 as PA8  # noqa: E402
 from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.kernels.ref import (paged_attention_int8_ref,  # noqa: E402
-                                     paged_attention_ref, ssd_scan_ref)
+                                     paged_attention_ref,
+                                     ssd_scan_backward_ref, ssd_scan_ref)
 from repro_torch.models import api  # noqa: E402
 from repro_torch.models import hybrid  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
@@ -556,6 +557,43 @@ def test_ssd_scan_kernel_is_deterministic(card, bc_dtype, row_pad):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SSD_SHAPES + SSD_EDGE_SHAPES[-3:])
+def test_ssd_scan_backward_kernel_matches_plain(card, shape, bc_dtype,
+                                                with_h0):
+    """The backward kernel against its plain version run in float64 on the
+    same inputs, with and without h0 and gh: f32 gradients within 1e-5 of
+    their largest magnitude, bf16 dB and dC within one bf16 spacing of it
+    (2^-7); two calls give the same bits; one call launches
+    ``KERNELS_PER_BACKWARD`` kernels."""
+    b, s, h, p, n, _ = shape
+    xdt, a, B, C, h0 = _ssd_case(b, s, h, p, n, bc_dtype)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    gy = torch.randn((b, s, h, p), generator=g, device="cuda")
+    gh = torch.randn((b, h, p, n), generator=g, device="cuda")
+    ins = (xdt, a, B, C, h0 if with_h0 else None, gy,
+           gh if with_h0 else None)
+    before = SSD.backward_launches
+    got = SSD.ssd_scan_backward(*ins)
+    torch.cuda.synchronize()
+    assert SSD.backward_launches == before + SSD.KERNELS_PER_BACKWARD
+    assert all(u is None and v is None or torch.equal(u, v)
+               for u, v in zip(got, SSD.ssd_scan_backward(*ins)))
+    want = ssd_scan_backward_ref(*(t.double() if t is not None and t.dtype
+                                   == torch.float32 else t for t in ins))
+    for name, u, w in zip("dxdt da dB dC dh0".split(), got, want):
+        if w is None:
+            assert u is None, name
+            continue
+        tol = 1e-5 if u.dtype == torch.float32 else 2.0 ** -7
+        assert u.shape == w.shape and u.dtype == ins[2 if name in (
+            "dB", "dC") else 0].dtype, name
+        assert float((u.double() - w).abs().max()) <= \
+            tol * float(w.abs().max()), name
+
+
+@pytest.mark.gpu
 def test_ssm_prefill_runs_through_kernel(card):
     """A reduced float32 Mamba-2 prefill on the card launches the scan's two
     kernels once per layer (40 tokens: padded to 64 at chunk 32) and matches
@@ -583,8 +621,9 @@ def test_ssm_prefill_runs_through_kernel(card):
 
 @pytest.mark.gpu
 def test_ssm_gradient_through_kernel_matches_cpu(card):
-    """A reduced float32 Mamba-2 loss on the card: its forward scans go
-    through the kernel (``ssm.SSDScan``), and every param leaf's gradient
+    """A reduced float32 Mamba-2 loss on the card: its scans go through the
+    forward and the backward kernels (``ssm.SSDScan``; no plain backward
+    scan), and every param leaf's gradient
     matches the same loss on the CPU (plain autograd through the chunked
     form) — ``in_proj``, ``conv_w``, ``conv_b``, ``dt_bias`` and ``A_log``
     included, which reach the loss only through the scan. The raw kernel
@@ -604,9 +643,13 @@ def test_ssm_gradient_through_kernel_matches_cpu(card):
                         {"tokens": toks.to(device)})
         return [g.cpu() for g in torch.autograd.grad(loss, flat)]
 
-    before = SSD.launches
+    before, before_back = SSD.launches, SSD.backward_launches
+    ssm.plain_backward_scans = 0
     got = grads(card)
     assert SSD.launches == before + SSD.KERNELS_PER_CALL * cfg.n_layers
+    assert SSD.backward_launches == \
+        before_back + SSD.KERNELS_PER_BACKWARD * cfg.n_layers
+    assert ssm.plain_backward_scans == 0
     for path, g, w in zip(tree.leaves_with_paths(params), got, grads("cpu")):
         scale = float(w.abs().max())
         assert scale > 0, path[0]

@@ -1,12 +1,13 @@
 """The gradient through the ``ssd_scan`` kernel: ``models.ssm.SSDScan``,
-whose forward is the kernel (its plain version on a CPU tensor, through
-``ops.ssd_scan``) and whose backward is the vector-Jacobian product of the
-plain chunked form. Called directly on CPU tensors: its outputs against the
-plain forms, ``torch.autograd.gradcheck`` in float64, and its gradients
-against ``jax.grad`` through the reference's ``ssm.ssd_chunked`` (with and
-without an initial state). The raw kernel wrapper refuses an input that
-requires grad; on the card, chip_smoke.py's "train mamba2-130m" phase
-holds the kernel's gradients against the plain path's."""
+whose forward is the kernel and whose backward the backward kernel (on a
+CPU tensor their plain versions, through ``ops.ssd_scan`` and
+``ops.ssd_scan_backward``). Called directly on CPU tensors: its outputs
+against the plain forms, ``torch.autograd.gradcheck`` in float64, and its
+gradients against ``jax.grad`` through the reference's
+``ssm.ssd_chunked`` (with and without an initial state). The raw kernel
+wrapper refuses an input that requires grad; on the card, chip_smoke.py's
+"train mamba2-130m" phase holds the kernel's gradients against the plain
+path's."""
 import numpy as np
 import pytest
 
@@ -53,11 +54,13 @@ def test_function_forward_is_the_plain_scan_on_cpu(with_h0):
 def test_gradcheck_float64():
     (xdt, a, B, C, h0), _ = _inputs(1, 8, 2, 3, 4, seed=1, dtype=np.float64)
     args = _leaves((xdt, a, B, C, h0))
+    ssm.plain_backward_scans = 0
     assert torch.autograd.gradcheck(
         lambda *t: ssm.SSDScan.apply(*t, 4), args, eps=1e-6, atol=1e-6)
     assert torch.autograd.gradcheck(
         lambda *t: ssm.SSDScan.apply(*t, None, 8), args[:4], eps=1e-6,
         atol=1e-6)
+    assert ssm.plain_backward_scans > 0     # the backward's plain version
 
 
 @pytest.mark.parametrize("with_h0", [False, True])

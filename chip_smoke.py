@@ -59,7 +59,9 @@ Phases (each raises, and the script exits non-zero, if its check fails):
                 recurrence; times kernel and plain versions in a CUDA graph
                 with the grid size, and both bounds (f32 CUDA cores, tensor
                 cores) with the share of each. Then the backward kernel
-                (the state pass and reverse walk, then the partials' sum) at
+                (the C·Bᵀ pass, the state pass and reverse walk, then dB,
+                dC and da as products over the heads; since PR 24 on the
+                tensor cores in split TF32) at
                 the serving shape, the train shape (b 4, s 256), a ragged
                 s 200, P 18 / N 20 and N 200 (padded by the wrapper, with
                 unaligned rows), N 256; B and C f32 and bf16, with and
@@ -70,7 +72,9 @@ Phases (each raises, and the script exits non-zero, if its check fails):
                 within one bf16 spacing plus 1e-5 x max|f64|), two calls
                 bit-identical; device
                 time in a CUDA graph at the train and serving shapes beside
-                its bound, the plain version's and the plain VJP's time.
+                its bound, each of its three kernels' time alone
+                (torch.profiler), the plain version's and the plain VJP's
+                time.
   7. serving  — the port's HTTP server with full-width Llama-3.1-8B (random
                 weights from a seeded torch.Generator), 2 instances, ring
                 replication on; concurrent completions, greedy determinism,
@@ -177,7 +181,7 @@ Phases (each raises, and the script exits non-zero, if its check fails):
                 shared-prefix set with the prefix cache equal to cold; the
                 int8 pool with chunks of 64 through a kill equal to the same
                 path without it (and its decode profile); then two
-                4000-token prompts, 128 greedy tokens each, past the
+                4064-token prompts, 64 greedy tokens each, past the
                 4096-token window: pages recycle (retire messages, at most
                 257 resident), and a kill after the slide resumes both
                 streams byte-identically.
@@ -272,8 +276,8 @@ Each path's kernel launch counts are set to 0 just before the path and read
 just after; launches made to compare a kernel with its plain version are
 not counted. An attention call counts each CUDA kernel it launches: its
 split pass and, over a table wide enough for two splits, its merge pass; a
-scan call its C·Bᵀ pass and its scan; a scan backward its walk and its
-ordered sum of the partials. The serve launcher of phase 30 runs
+scan call its C·Bᵀ pass and its scan; a scan backward its C·Bᵀ pass, its
+walk and its dB / dC / da kernel. The serve launcher of phase 30 runs
 qwen1.5-0.5b at its reduced size: its attention launches stand apart, as
 ``launches_serve_launcher_reduced``, not in the full-width count.
 """
@@ -1157,9 +1161,10 @@ def ssd_bwd_bound_ms(xdt, B, h0, gh):
     tensor cores an f32-accurate multiply-add is three TF32 products (the
     error-compensated split), two where one factor is bf16 (exact in TF32):
     with bf16 B and C the state, dS and dx terms (each with a factor of B
-    or C) take two and dB, dC and da three. On the f32 CUDA cores (the
-    kernel's route) they run at 67 TFLOP/s. Returns {"tensor_cores": (ms,
-    by), "cuda_cores": (ms, by)}, as ``ssd_bound_ms`` does."""
+    or C) take two and dB, dC and da three (the tensor cores are the
+    kernels' route since PR 24). On the f32 CUDA cores they run at 67
+    TFLOP/s. Returns {"tensor_cores": (ms, by), "cuda_cores": (ms, by)},
+    as ``ssd_bound_ms`` does."""
     b, s, h, p = xdt.shape
     n = B.shape[-1]
     state = b * h * p * n * 4
@@ -1186,8 +1191,9 @@ def ssd_scan_backward_phase() -> dict:
     bf16 B and C) within one bf16 spacing of the f64 value (one rounding of
     an f32 result to bf16) plus 1e-5 x max|f64| (the f32 result's own
     error, as the f32 limit's floor). Two calls give equal bits. Then device time
-    (CUDA graph) at the train and serving shapes beside the bound, the
-    plain version's graph time and the plain chunked VJP's elapsed time."""
+    (CUDA graph) at the train and serving shapes beside the bound, each of
+    the three kernels' device time alone (torch.profiler), the plain
+    version's graph time and the plain chunked VJP's elapsed time."""
     max_err, failed = 0.0, []
     for i, (shape, bc_dtype, with_h0, with_gh, odd) in enumerate(
             SSD_BWD_CASES):
@@ -1244,18 +1250,21 @@ def ssd_scan_backward_phase() -> dict:
         bounds = ssd_bwd_bound_ms(sets[0][0], sets[0][2], None, None)
         (bms, by), (cms, cby) = bounds["tensor_cores"], bounds["cuda_cores"]
         grid = SSD.backward_grid(*shape[:5])
+        alone = ssd_bwd_kernel_ms(sets)
         print(f"ssd_scan_backward at {label} shape {shape[:5]}, B/C bf16, no "
               f"h0, no gh: device time (CUDA graph) {ms * 1e3:.2f} us; bound "
-              f"on the tensor cores {bms * 1e3:.2f} us ({by}), "
-              f"{100 * bms / ms:.1f}% of it reached; on the f32 CUDA cores "
-              f"(the kernel's route) {cms * 1e3:.2f} us ({cby}), "
-              f"{100 * cms / ms:.1f}%; plain version {plain_ms * 1e3:.2f} us "
-              f"(CUDA graph); plain chunked VJP at chunk {shape[-1]} "
-              f"{vjp_ms * 1e3:.2f} us (CUDA events, eager); grid "
-              f"{json.dumps(grid)}")
+              f"on the tensor cores (the kernels' route) {bms * 1e3:.2f} us "
+              f"({by}), {100 * bms / ms:.1f}% of it reached; on the f32 CUDA "
+              f"cores {cms * 1e3:.2f} us ({cby}), {100 * cms / ms:.1f}%; "
+              f"each kernel alone (torch.profiler, us) "
+              f"{json.dumps({k: round(v * 1e3, 2) for k, v in alone.items()})}"
+              f"; plain version {plain_ms * 1e3:.2f} us (CUDA graph); plain "
+              f"chunked VJP at chunk {shape[-1]} {vjp_ms * 1e3:.2f} us (CUDA "
+              f"events, eager); grid {json.dumps(grid)}")
         out[label] = {"ms": ms, "plain_ms": plain_ms, "plain_vjp_ms": vjp_ms,
                       "bound_ms": bms, "bound_by": by,
-                      "bound_cuda_cores_ms": cms, "grid_blocks": grid}
+                      "bound_cuda_cores_ms": cms, "grid_blocks": grid,
+                      "kernel_ms": alone}
     t = out["train"]
     return {"name": "ssd_scan_backward", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
@@ -1268,8 +1277,30 @@ def ssd_scan_backward_phase() -> dict:
             "bound_by": t["bound_by"], "library_ms": None,
             "bound_cuda_cores_ms": t["bound_cuda_cores_ms"],
             "shape": "train (b 4, s 256, h 24, p 64, n 128, bf16 B and C)",
+            "redesign": "PR 24: split-TF32 mma.sync; C·Bᵀ and sum_h M_h "
+                        "once per (batch, sub-chunk); dB and dC as one "
+                        "product over the heads, no per-(head, P tile) "
+                        "partials",
+            "kernel_ms": t["kernel_ms"], "grid_blocks": t["grid_blocks"],
             "plain_vjp_ms": t["plain_vjp_ms"],
             "serving_shape": out["serving"]}
+
+
+SSD_BWD_KERNELS = ("ssd_bwd_cb_kernel", "ssd_bwd_walk_kernel",
+                   "ssd_bwd_dbc_kernel")
+
+
+def ssd_bwd_kernel_ms(sets, n=10) -> dict:
+    """Device ms per call of each of the backward's kernels on its own
+    (torch.profiler's kernel time over ``n`` eager passes over ``sets``)."""
+    def calls():
+        for args in sets:
+            SSD.ssd_scan_backward(*args)
+
+    _, _, _, kernels = profile_device(calls, n)
+    per = n * len(sets) * 1e3
+    return {name: sum(e.self_device_time_total for e in kernels
+                      if name in e.key) / per for name in SSD_BWD_KERNELS}
 
 
 # -- 7.-12. serving, failover and decode profile, per pool --------------------
@@ -2712,10 +2743,12 @@ MOE_DEPTH_CUTS = {
     "dbrx-132b": "all 40 layers are 260.7 GB of bf16 weights; a layer adds "
                  "6.07 GiB, and on an H100 80GB HBM3 every phase at 11 "
                  "layers peaked at 73.73 GiB of its 79.18"}
-# mixtral's window phase: 4000-token prompts and 128 new tokens, so
+# mixtral's window phase: 4064-token prompts and 64 new tokens, so
 # positions pass the 4096-token window and the first page is retired at
-# position 4111, 16 tokens before the end
-WINDOW_PROMPT, WINDOW_NEW = 4000, 128
+# position 4111, 16 tokens before the end (4000 and 128 until PR 24, which
+# moved 64 of mixtral's ~0.2 s decode steps a run into the prefill to keep
+# the whole script inside its 1,200 s)
+WINDOW_PROMPT, WINDOW_NEW = 4064, 64
 
 
 def busiest_decoding(eng):
@@ -3661,7 +3694,7 @@ def step_breakdown(card, cfg, params, batch):
 def scan_backward_ms(shape) -> dict:
     """At (b, s, h, p, n, chunk): elapsed time of one eager ``SSDScan``
     forward and of its backward (``SSDScan.backward``: autograd, the
-    wrapper and its two kernels, host gaps included), each by CUDA events
+    wrapper and its three kernels, host gaps included), each by CUDA events
     over 10 calls; the backward is a forward and backward less the
     forward."""
     xdt, a, B, C, _ = ssd_case(shape, torch.bfloat16, seed=7)

@@ -90,11 +90,13 @@ SSD_SUB_CHUNK = 32      # positions per sub-chunk of the backward kernel
 
 
 def ssd_scan_backward_ref(xdt, a, B, C, h0, gy, gh=None):
-    """Backward of the SSD scan as the kernel (``csrc/ssd_scan_bwd.cu``)
-    takes it, over sub-chunks of ``SSD_SUB_CHUNK`` positions, in torch ops
-    (no autograd): a state pass keeps the state entering each sub-chunk,
-    then a reverse walk carries dS, the gradient into the state leaving the
-    sub-chunk. Per sub-chunk, with cum the cumulative log decay inside it,
+    """Backward of the SSD scan over sub-chunks of ``SSD_SUB_CHUNK``
+    positions, as the kernels (``csrc/ssd_scan_bwd.cu``) cut it, in torch
+    ops (no autograd): a state pass keeps the state entering each
+    sub-chunk, then a reverse walk carries dS, the gradient into the state
+    leaving the sub-chunk. (The kernels' own order of work — dB and dC as
+    products over the heads, gy . y without a per-head dC — is written out
+    in ``tests/test_torch_ssd_scan_bwd_tiles.py``.) Per sub-chunk, with cum the cumulative log decay inside it,
     L[i, j] = exp(cum_i - cum_j) (j <= i) and e = exp(total - cum):
 
       G = (C B^T) o L,   M = (gy x^T) o L

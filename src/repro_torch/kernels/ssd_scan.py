@@ -27,10 +27,12 @@ show that a path went through the kernels.
 The gradient is a second library, ``csrc/ssd_scan_bwd.cu`` (its header
 comment gives the design and the bound), built the same way into
 ``build/kernels/libssd_scan_bwd-<hash>.so``: ``ssd_scan_backward`` launches
-its two kernels (a state pass and reverse walk per (P tile, head, batch),
-then an ordered sum of the per-block partials), takes what the forward
-takes, and counts them in ``backward_launches`` (``KERNELS_PER_BACKWARD``
-per call).
+its three kernels (a C Bᵀ pass per (batch, sub-chunk); a state pass and
+reverse walk per (P tile, head, batch) that keeps each sub-chunk's entering
+state and leaving gradient; dB and dC as products over the heads per
+(batch, sub-chunk), one cluster of head-group blocks each, with da), takes
+what the forward takes, and counts them in ``backward_launches``
+(``KERNELS_PER_BACKWARD`` per call).
 """
 from __future__ import annotations
 
@@ -47,7 +49,7 @@ MAX_STATE = 256           # largest state dim N (csrc: kMaxN)
 launches = 0
 KERNELS_PER_CALL = 2      # the C Bᵀ pass and the scan
 backward_launches = 0
-KERNELS_PER_BACKWARD = 2  # the state pass and reverse walk, the partials' sum
+KERNELS_PER_BACKWARD = 3  # the C Bᵀ pass, the walk, dB / dC / da
 
 
 def _bind(lib):
@@ -73,12 +75,16 @@ def _bind_bwd(lib):
     lib.ssd_scan_bwd_launch.restype = i32
     lib.ssd_scan_bwd_scratch_floats.argtypes = [i32] * 5
     lib.ssd_scan_bwd_scratch_floats.restype = i64
-    lib.ssd_scan_bwd_smem_bytes.argtypes = [i32]
+    lib.ssd_scan_bwd_smem_bytes.argtypes = [i32, i32, i32]
     lib.ssd_scan_bwd_smem_bytes.restype = i64
-    lib.ssd_scan_bwd_blocks_per_sm.argtypes = [i32, i32]
+    lib.ssd_scan_bwd_blocks_per_sm.argtypes = [i32, i32, i32]
     lib.ssd_scan_bwd_blocks_per_sm.restype = i32
-    lib.ssd_scan_bwd_p_tile.argtypes = []
-    lib.ssd_scan_bwd_p_tile.restype = i32
+    for fn in ("ssd_scan_bwd_sub_chunk", "ssd_scan_bwd_p_tile",
+               "ssd_scan_bwd_cb_split"):
+        getattr(lib, fn).argtypes = []
+        getattr(lib, fn).restype = i32
+    lib.ssd_scan_bwd_head_groups.argtypes = [i32] * 5
+    lib.ssd_scan_bwd_head_groups.restype = i32
 
 
 LIB = KernelLibrary("ssd_scan", _bind)
@@ -221,9 +227,9 @@ def ssd_scan_backward(xdt, a, B, C, h0, gy, gh):
     it) for the inputs xdt, a, B, C, h0 of a call, given gy (b, s, h, p)
     f32 and gh (b, h, p, n) f32 or None (0), the gradients of y and of the
     final state. Returns (dxdt, da, dB, dC, dh0), each in its input's dtype
-    (dh0 None when h0 is None). Launches the two CUDA kernels on the current
-    stream; raises on any input the kernels do not take (as ``ssd_scan``
-    does) and when a launch fails."""
+    (dh0 None when h0 is None). Launches the three CUDA kernels on the
+    current stream; raises on any input the kernels do not take (as
+    ``ssd_scan`` does) and when a launch fails."""
     global backward_launches
     _check(xdt, a, B, C, h0, more=(gy, gh))
     if gy.dtype != torch.float32 or gy.shape != xdt.shape:
@@ -283,17 +289,29 @@ def backward_operands(gy, gh, pk, nk):
 
 def backward_grid(b: int, s: int, h: int, p: int, n: int,
                   bc_dtype=torch.bfloat16) -> dict:
-    """Thread blocks of one backward call: the reverse walk (one per P tile
-    of 32 rows, head and batch row), with its shared memory per block and
-    the blocks one SM holds at once, and the scratch it needs."""
+    """Thread blocks of one backward call per kernel — the C Bᵀ pass (a few
+    per batch row and sub-chunk), the walk (one per P tile, head and batch
+    row), the dB / dC / da kernel (one per head group, sub-chunk and batch
+    row; the head groups of a sub-chunk form one cluster) — with each one's
+    shared memory per block and the blocks one SM holds at once, and the
+    scratch bytes the call allocates."""
     lib = _library_bwd()
     pk, nk = -(-p // 4) * 4, -(-n // 8) * 8
-    per_sm = lib.ssd_scan_bwd_blocks_per_sm(nk, _BC_DTYPES[bc_dtype])
-    if per_sm < 0:
-        raise RuntimeError(f"ssd_scan_backward occupancy query failed: CUDA "
-                           f"error {-per_sm}")
-    return {"walk": b * h * -(-pk // lib.ssd_scan_bwd_p_tile()),
-            "walk_smem_bytes": lib.ssd_scan_bwd_smem_bytes(nk),
-            "walk_blocks_per_sm": per_sm,
-            "scratch_bytes": 4 * lib.ssd_scan_bwd_scratch_floats(
-                b, s, h, pk, nk)}
+    dt = _BC_DTYPES[bc_dtype]
+    n_sub = -(-s // lib.ssd_scan_bwd_sub_chunk())
+    blocks = {"cb_pass": b * n_sub * lib.ssd_scan_bwd_cb_split(),
+              "walk": b * h * -(-pk // lib.ssd_scan_bwd_p_tile()),
+              "dbc": b * n_sub * lib.ssd_scan_bwd_head_groups(b, s, h, nk,
+                                                              dt)}
+    out = {}
+    for k, (name, count) in enumerate(blocks.items()):
+        per_sm = lib.ssd_scan_bwd_blocks_per_sm(k, nk, dt)
+        if per_sm < 0:
+            raise RuntimeError(f"ssd_scan_backward occupancy query failed: "
+                               f"CUDA error {-per_sm}")
+        out[name] = count
+        out[f"{name}_smem_bytes"] = lib.ssd_scan_bwd_smem_bytes(k, nk, dt)
+        out[f"{name}_blocks_per_sm"] = per_sm
+    out["scratch_bytes"] = 4 * lib.ssd_scan_bwd_scratch_floats(b, s, h, pk,
+                                                               nk)
+    return out

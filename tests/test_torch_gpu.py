@@ -594,6 +594,32 @@ def test_ssd_scan_backward_kernel_matches_plain(card, shape, bc_dtype,
 
 
 @pytest.mark.gpu
+def test_ssd_scan_backward_grid_and_scratch(card):
+    """At mamba2-130m's train shape (b 4, s 256, h 24, p 64, n 128) the
+    backward's grid reports its three kernels — the C·Bᵀ pass, the walk
+    (one block per 16-row P tile, head and batch row) and the dB / dC / da
+    kernel (head groups dividing h, up to 8, per sub-chunk and batch row) —
+    with shared memory and blocks per SM, and its scratch: the entering
+    states and the leaving gradients (b, n_sub, h, p, n) f32 each, C·Bᵀ and
+    the dcum partials, 50.8 MB, within the 75.7 MB the kernel it replaced
+    took."""
+    b, s, h, p, n = 4, 256, 24, 64, 128
+    grid = SSD.backward_grid(b, s, h, p, n)
+    for k in ("cb_pass", "walk", "dbc"):
+        assert grid[k] > 0 and grid[f"{k}_smem_bytes"] > 0
+        assert grid[f"{k}_blocks_per_sm"] >= 1
+    n_sub = s // 32
+    assert grid["walk"] == b * h * (p // 16)
+    groups = grid["dbc"] // (b * n_sub)
+    assert grid["dbc"] == b * n_sub * groups and 1 <= groups <= 8
+    assert h % groups == 0
+    assert grid["scratch_bytes"] == 4 * (2 * b * n_sub * h * p * n
+                                         + b * n_sub * 32 * 32
+                                         + b * n_sub * 32 * h * (p // 16))
+    assert grid["scratch_bytes"] <= 75.7e6
+
+
+@pytest.mark.gpu
 def test_ssm_prefill_runs_through_kernel(card):
     """A reduced float32 Mamba-2 prefill on the card launches the scan's two
     kernels once per layer (40 tokens: padded to 64 at chunk 32) and matches

@@ -4,6 +4,7 @@ what the compiler gave them.
 
   python3 tools/tune_kernels.py attention [NAME ...]   # paged attention
   python3 tools/tune_kernels.py ssd_scan [NAME ...]    # the SSD scan
+  python3 tools/tune_kernels.py ssd_scan_bwd [NAME ...]  # its backward
   python3 tools/tune_kernels.py resources [SOURCE ...] # ptxas's report
   python3 tools/tune_kernels.py mma_rate               # mma.sync's rate
 
@@ -27,6 +28,16 @@ out), its error against the plain version; every turn prints device times
   n 128, chunk 256, B and C bf16, two input sets), with the grid. Probes
   ``no_loads``, ``no_off``, ``no_update``, ``no_diag``, ``no_cb_pass``
   leave out the loads, one of the three products or the C·Bᵀ pass.
+- ``ssd_scan_bwd``: one call at the train shape (b 4, s 256, h 24, p 64,
+  n 128) and one at the serving shape, B and C bf16, two input sets each,
+  with each kernel's device time (torch.profiler). ``no_pdl`` launches each
+  kernel after the one before it ends (so each kernel's time is its own);
+  probes ``no_dbc_loads``, ``no_dbc_math`` leave the S_in / dS_out copies
+  or the products out of the dB / dC / da kernel, ``no_state_update``,
+  ``no_rev_update``, ``no_rev_off``, ``no_rev_diag`` one of the walk's
+  products, ``no_s_store``, ``no_ds_store`` its scratch stores;
+  ``clocks`` prints %globaltimer phases of the walk's and the dB / dC / da
+  kernel's blocks.
 
 ``resources`` compiles each ``csrc/<SOURCE>.cu`` of the tree (all when none
 is named) with the flags of ``kernels/build.py`` plus ``-Xptxas -v`` and
@@ -53,6 +64,34 @@ TOOL = os.path.abspath(__file__)
 CSRC = "src/repro_torch/kernels/csrc/"
 _PA = (CSRC + "paged_attention.cu", CSRC + "paged_attention_int8.cu")
 _SSD = CSRC + "ssd_scan.cu"
+_BWD = CSRC + "ssd_scan_bwd.cu"
+_CLOCKS = r"""
+__device__ unsigned long long g_clk_walk[8192 * 4];
+__device__ unsigned long long g_clk_dbc[8192 * 8];
+__device__ __forceinline__ unsigned long long gtime() {
+  unsigned long long v;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(v));
+  return v;
+}
+__device__ __forceinline__ int blin() {
+  return (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+}
+__device__ unsigned long long g_clk_ph[8192 * 9];
+#define MARK_W(k) if (threadIdx.x == 0) g_clk_walk[blin() * 4 + (k)] = gtime()
+#define PH(k) { const unsigned long long tn = gtime(); tph[k] += tn - tprev; \
+                tprev = tn; }
+#define MARK_D(k) if (threadIdx.x == 0) g_clk_dbc[blin() * 8 + (k)] = gtime()
+"""
+_CLOCKS_C = r"""
+int ssd_bwd_clocks(int which, void* out, long long bytes) {
+  return which == 0   ? (int)cudaMemcpyFromSymbol(out, g_clk_walk, bytes)
+         : which == 1 ? (int)cudaMemcpyFromSymbol(out, g_clk_dbc, bytes)
+                      : (int)cudaMemcpyFromSymbol(out, g_clk_ph, bytes);
+}
+int ssd_bwd_groups(int batch, int S, int H, int N, int bc_dtype) {
+  return dbc_groups(batch, (S + kQ - 1) / kQ, H, N, bc_dtype);
+}
+"""
 
 # kernel -> {variant: [(file, text, replacement)]}; each text must occur
 # exactly once in its file
@@ -95,11 +134,117 @@ VARIANTS = {
         "occupancy1": [(_SSD, "         kYpartBytes + 16;",
                         "         kYpartBytes + 16 + 60000;")],
     },
+    "ssd_scan_bwd": {
+        "base": [],
+        # every kernel launched after the one before it ends, so that
+        # torch.profiler's time of each is its own
+        "no_pdl": [(_BWD, "programmaticStreamSerializationAllowed = 1;",
+                    "programmaticStreamSerializationAllowed = 0;")],
+        # the dB / dC / da kernel four stages deep at one block an SM (two
+        # stages at two blocks shipped)
+        "dbc_stages4": [
+            (_BWD, "  return 2 * (size_t)dbc_stage_floats(N) * sizeof(float);",
+             "  return (N <= 128 ? 4 : 2) * (size_t)dbc_stage_floats(N) * "
+             "sizeof(float);"),
+            (_BWD, "__launch_bounds__(64 * kCT, kCT <= 4 ? 2 : 1)",
+             "__launch_bounds__(64 * kCT, 1)"),
+            (_BWD, "kS = 2;          // warps, stages",
+             "kS = kCT <= 4 ? 4 : 2;")],
+        # the dB / dC / da kernel without its S_in / dS_out copies, or
+        # without its products
+        "no_dbc_loads": [(_BWD, "for (int i = tid; i < kKC * per_row;",
+                          "for (int i = tid; i < 0 * per_row;")],
+        "no_dbc_math": [(_BWD, "      if (8 * kk >= rows) break;",
+                         "      if (true) break;")],
+        # the walk without one of its products: the state pass's update;
+        # the reverse walk's dS update, y_off and dx_off, G x and G^T gy
+        "no_state_update": [(_BWD, "    update_state<T, kNT>(st, ",
+                             "    if (false) update_state<T, kNT>(st, ")],
+        "no_rev_update": [(_BWD, "    update_state<T, kNT>(ds, ",
+                           "    if (false) update_state<T, kNT>(ds, ")],
+        "no_rev_off": [(_BWD, "      tile_by_state<T, kNT>(acc, tl.C, st,",
+                        "      if (0) tile_by_state<T, kNT>(acc, tl.C, st,"),
+                       (_BWD, "      tile_by_state<T, kNT>(acc, tl.B, ds,",
+                        "      if (0) tile_by_state<T, kNT>(acc, tl.B, ds,")],
+        # the walk without its S_in stores (state pass) or dS_out stores
+        "no_s_store": [(_BWD, "    store_state<kNT>(args.s_in + slab0",
+                        "    if (0) store_state<kNT>(args.s_in + slab0")],
+        "no_ds_store": [(_BWD, "    store_state<kNT>(args.ds_out + slab0",
+                         "    if (0) store_state<kNT>(args.ds_out + slab0")],
+        "no_rev_diag": [(_BWD, "      if (kk <= 2 * mi + 1) {",
+                         "      if (false) {"),
+                        (_BWD, "      if (kk >= 2 * mi) {",
+                         "      if (false) {")],
+        # %globaltimer at the phases of every walk and dB / dC / da block
+        # (thread 0), read back after one call, with the head groups the
+        # call took
+        "clocks": [
+            (_BWD, "namespace {\n", "namespace {\n" + _CLOCKS),
+            (_BWD, "  const int pt = blockIdx.x, p0 = pt * kPT,",
+             "  MARK_W(0);\n  const int pt = blockIdx.x, p0 = pt * kPT,"),
+            (_BWD, "  // 2. the reverse walk.", "  MARK_W(1);\n  // 2. the "
+             "reverse walk."),
+            (_BWD, "  }\n}\n\n// ---- kernel 3",
+             "  }\n  MARK_W(2);\n}\n\n// ---- kernel 3"),
+            (_BWD, "  cg::cluster_group cluster = cg::this_cluster();\n",
+             "  cg::cluster_group cluster = cg::this_cluster();\n"
+             "  MARK_D(0);\n"),
+            (_BWD, "  // everything below reads what the walk wrote\n"
+             "  asm volatile(\"griddepcontrol.wait;\\n\" ::: \"memory\");\n",
+             "  asm volatile(\"griddepcontrol.wait;\\n\" ::: \"memory\");\n"
+             "  MARK_D(1);\n"),
+            (_BWD, "  // the block's partials to its shared memory,",
+             "  MARK_D(2);\n  // the block's partials to its shared memory,"),
+            (_BWD, "  cluster.sync();\n  for (int i = tid; i < kQ * kQ;",
+             "  cluster.sync();\n  MARK_D(3);\n  for (int i = tid; "
+             "i < kQ * kQ;"),
+            (_BWD, "  // this block's output tiles:",
+             "  MARK_D(4);\n  // this block's output tiles:"),
+            (_BWD, "  // da: the dcum partials summed over the P tiles in "
+             "order, then their\n  // reverse cumulative sum inside the "
+             "sub-chunk; this block's heads,",
+             "  MARK_D(5);\n  // da: the dcum partials summed over the P "
+             "tiles in order, then their\n  // reverse cumulative sum inside "
+             "the sub-chunk; this block's heads,"),
+            (_BWD, "  cluster.sync();    // no block leaves",
+             "  MARK_D(6);\n  cluster.sync();    // no block leaves"),
+            # thread 0's time per phase of the walk's steps, summed
+            (_BWD, "  // 1. the state pass: S_in of every sub-chunk to the "
+             "scratch\n", "  unsigned long long tph[9] = {}, tprev = gtime()"
+             ";\n"),
+            (_BWD, "    __syncthreads();   // ... and every thread is done "
+             "with the last stage\n", "    __syncthreads();\n    PH(0);\n"),
+            (_BWD, "    update_state<T, kNT>(st, ", "    PH(1);\n    "
+             "update_state<T, kNT>(st, "),
+            (_BWD, "                         n_tiles);\n  }\n\n  MARK_W(1);",
+             "                         n_tiles);\n    PH(2);\n  }\n\n  "
+             "MARK_W(1);"),
+            (_BWD, "    bar_wait(bars + (f & 1), (f >> 1) & 1);\n    "
+             "__syncthreads();\n    if (f + 1 < n_fill) fill",
+             "    bar_wait(bars + (f & 1), (f >> 1) & 1);\n    "
+             "__syncthreads();\n    PH(3);\n    if (f + 1 < n_fill) fill"),
+            (_BWD, "    // y_off = C S_in^T and dx_off = B dS_out^T over this "
+             "warp's columns\n", "    PH(4);\n"),
+            (_BWD, "    __syncthreads();   // G, the update's fragments, the "
+             "partials\n", "    PH(5);\n    __syncthreads();\n    PH(6);\n"),
+            (_BWD, "    // y = y_diag + exp(cum_i) y_off, dx = dx_diag + e_i "
+             "dx_off (the\n", "    PH(7);\n    // y = y_diag + exp(cum_i) "
+             "y_off, dx = dx_diag + e_i dx_off (the\n"),
+            (_BWD, "    bdot = ((wsum[0] + wsum[1]) + wsum[2]) + wsum[3];\n",
+             "    bdot = ((wsum[0] + wsum[1]) + wsum[2]) + wsum[3];\n    "
+             "PH(8);\n"),
+            (_BWD, "  MARK_W(2);\n", "  MARK_W(2);\n  if (threadIdx.x == 0)"
+             "\n    for (int k = 0; k < 9; ++k) g_clk_ph[blin() * 9 + k] = "
+             "tph[k];\n"),
+            (_BWD, "extern \"C\" {\n", "extern \"C\" {\n" + _CLOCKS_C)],
+    },
 }
 PROBES = {"no_math", "no_copies", "no_loads", "no_off", "no_update",
-          "no_diag", "no_cb_pass"}
+          "no_diag", "no_cb_pass", "no_dbc_loads", "no_dbc_math",
+          "no_state_update", "no_rev_update", "no_rev_off", "no_rev_diag",
+          "no_s_store", "no_ds_store"}
 SOURCES = {"attention": ("paged_attention", "paged_attention_int8"),
-           "ssd_scan": ("ssd_scan",)}
+           "ssd_scan": ("ssd_scan",), "ssd_scan_bwd": ("ssd_scan_bwd",)}
 
 
 def make_copy(kernel: str, name: str) -> str:
@@ -158,7 +303,11 @@ def prepare(kernel: str):
     KB = _build_module(os.getcwd())
     lines = []
     for src in SOURCES[kernel]:
-        importlib.import_module(f"repro_torch.kernels.{src}").build()
+        if src == "ssd_scan_bwd":         # the second library of ssd_scan
+            importlib.import_module(
+                "repro_torch.kernels.ssd_scan").LIB_BWD.build()
+        else:
+            importlib.import_module(f"repro_torch.kernels.{src}").build()
         lines += ptxas_report(str(KB.CSRC / f"{src}.cu"),
                               os.path.join("build", "resources"))
     with open("resources.txt", "w") as f:
@@ -236,6 +385,83 @@ def run_ssd_scan(C, name: str, first: bool):
           f"{bound * 1e3:.2f} us; share {bound / ms:.3f}", flush=True)
 
 
+def clock_report(SSD, label, shape, args):
+    """Phases of the backward's walk and dB / dC / da blocks in one call
+    (the ``clocks`` variant's %globaltimer marks), in us from the first
+    walk block's start: the spread of block starts, each phase's mean and
+    the last block's end."""
+    import torch
+
+    lib = SSD._library_bwd()
+    lib.ssd_bwd_clocks.argtypes = [ctypes.c_int, ctypes.c_void_p,
+                                   ctypes.c_longlong]
+    lib.ssd_bwd_groups.argtypes = [ctypes.c_int] * 5
+    b, s, h, p, n = shape[:5]
+    SSD.ssd_scan_backward(*args)
+    torch.cuda.synchronize()
+    n_w = b * h * -(-p // 16)
+    G = lib.ssd_bwd_groups(b, s, h, n, 1)
+    n_d = b * -(-s // 32) * G
+    w = torch.zeros((n_w, 4), dtype=torch.int64)
+    d = torch.zeros((n_d, 8), dtype=torch.int64)
+    lib.ssd_bwd_clocks(0, w.data_ptr(), w.numel() * 8)
+    lib.ssd_bwd_clocks(1, d.data_ptr(), d.numel() * 8)
+    t0 = int(w[:, 0].min())
+    us = lambda v: float(v) / 1e3  # noqa: E731
+    rel = lambda col: ((col - t0).min(), (col - t0).max())  # noqa: E731
+    print(f"clocks {label}: walk starts {us(rel(w[:, 0])[0]):.1f}..."
+          f"{us(rel(w[:, 0])[1]):.1f}, state pass mean "
+          f"{us((w[:, 1] - w[:, 0]).double().mean()):.1f}, reverse mean "
+          f"{us((w[:, 2] - w[:, 1]).double().mean()):.1f}, ends "
+          f"{us(rel(w[:, 2])[0]):.1f}...{us(rel(w[:, 2])[1]):.1f}")
+    ph = torch.zeros((n_w, 9), dtype=torch.int64)
+    lib.ssd_bwd_clocks(2, ph.data_ptr(), ph.numel() * 8)
+    phases = ["S wait+barrier", "S fill/store/scan/vd/barrier", "S update",
+              "R wait+barrier", "R fill/store/scan/vd/G", "R y_off+dx_off",
+              "R barrier", "R update+diag", "R combine/stores/barrier"]
+    print(f"clocks {label}: walk thread 0, us per call, mean over blocks: "
+          + ", ".join(f"{k} {us(ph[:, i].double().mean()):.1f}"
+                      for i, k in enumerate(phases)))
+    names = ["start", "wait", "loop", "partials+sync", "M sum", "tiles",
+             "da", "end"]
+    print(f"clocks {label}: dbc head groups {G}; starts "
+          f"{us(rel(d[:, 0])[0]):.1f}...{us(rel(d[:, 0])[1]):.1f}; after "
+          f"wait {us(rel(d[:, 1])[0]):.1f}...{us(rel(d[:, 1])[1]):.1f}; "
+          + ", ".join(f"{names[k]} mean "
+                      f"{us((d[:, k] - d[:, k - 1]).double().mean()):.1f}"
+                      for k in range(2, 7))
+          + f"; last mark {us(rel(d[:, 6])[1]):.1f}", flush=True)
+
+
+def run_ssd_scan_bwd(C, name: str, first: bool):
+    import torch
+    from repro_torch.kernels import ssd_scan as SSD
+
+    for label, shape in (("train", C.SSD_TRAIN), ("serving", C.SSD_SERVE)):
+        sets = [C.ssd_bwd_case(shape, torch.bfloat16, 150 + j, False, False,
+                               False) for j in range(2)]
+        if first and name not in PROBES:
+            got = SSD.ssd_scan_backward(*sets[0])
+            want = C.ssd_scan_backward_ref(*sets[0])
+            err = max(float((g.float() - w.float()).abs().max() /
+                            w.float().abs().max())
+                      for g, w in zip(got, want) if g is not None)
+            print(f"{name} ssd_scan_backward {label}: largest error against "
+                  f"the plain version over its max |value| {err:.3e}")
+            C.check(err < 1e-2, f"{name}: the backward disagrees")
+        bound = C.ssd_bwd_bound_ms(sets[0][0], sets[0][2], None,
+                                   None)["tensor_cores"][0]
+        ms = C.graph_ms(SSD.ssd_scan_backward, sets)
+        alone = C.ssd_bwd_kernel_ms(sets)
+        if name == "clocks":
+            clock_report(SSD, label, shape, sets[0])
+        print(f"{name:12s} ssd_scan_backward {label} shape: {ms * 1e3:.2f} "
+              f"us; bound {bound * 1e3:.2f} us; share {bound / ms:.3f}; "
+              f"kernels (torch.profiler, us) " + ", ".join(
+                  f"{k} {v * 1e3:.2f}" for k, v in alone.items()),
+              flush=True)
+
+
 def run_variant(kernel: str, name: str, first: bool, turn: int):
     """One turn of one variant, inside its copy (the current directory)."""
     sys.path.insert(0, os.getcwd())
@@ -248,8 +474,10 @@ def run_variant(kernel: str, name: str, first: bool, turn: int):
         print(f"{name}: ptxas\n" + open("resources.txt").read(), end="")
     if kernel == "attention":
         run_attention(C, name, yardstick=turn == 0)
-    else:
+    elif kernel == "ssd_scan":
         run_ssd_scan(C, name, first)
+    else:
+        run_ssd_scan_bwd(C, name, first)
 
 
 def tune(kernel: str, names) -> int:

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing as T
 from repro_torch.kernels import ops
 from repro_torch.kernels.paged_attention_int8 import (dequantize_pages,
                                                       quantize_pages)
@@ -70,11 +71,13 @@ def kv_layer_indices(cfg):
 def mlp_apply(cfg, p, h, *, decode: bool):
     """Per-family MLP for one layer of the paged path. ``p`` is that
     layer's param dict; MoE routes through the experts (drop-free — see
-    models/moe.py). Prefill's products run in PREFILL_ROWS-row blocks."""
+    models/moe.py), timed as the ``moe.routed_mlp`` span. Prefill's
+    products run in PREFILL_ROWS-row blocks."""
     rows = 0 if decode else PREFILL_ROWS
     if cfg.arch_type == "moe":
-        return M.decode_mlp(cfg, p, h) if decode \
-            else M.serving_prefill_mlp(cfg, p, h, rows)
+        with T.span("moe.routed_mlp", device=h.is_cuda):
+            return M.decode_mlp(cfg, p, h) if decode \
+                else M.serving_prefill_mlp(cfg, p, h, rows)
     return L.mlp(p["mlp"], h, rows)
 
 

@@ -63,6 +63,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing as T
 from repro_torch.distributed import sharding as SH
 from repro_torch.models import api
 from repro_torch.models import hybrid as H
@@ -210,6 +211,7 @@ class RealInstance:
         self.ecfg = ecfg
         self.instance_id = instance_id
         self.device = torch.device(device)
+        self.on_card = self.device.type == "cuda"   # device spans time there
         self.alive = True
         # disaggregation role: "prefill" instances run chunked prefill only
         # and hand finished prompts to the engine's handoff stream instead
@@ -450,30 +452,33 @@ class RealInstance:
                                                       device=self.device)
                 if self.family == "hybrid" else None}
             return True
-        if self.family == "hybrid":
-            logits, k_seq, v_seq, blob = self._prefill(
-                self.params, self._tensor(toks), n)
-            bref = self.pool.blob_ref(req.rid)
-            self.pool.write_blob(bref.slot, blob[0])
-            self.slot_blob[slot] = bref.slot
-        else:
-            logits, k_seq, v_seq = self._prefill(self.params,
-                                                 self._tensor(toks), n)
-        self.prefill_compute_tokens += n   # monolithic: always full compute
-        # windowed archs: only the window-covering tail pages were allocated
-        # (refs[0].logical_idx > 0 for long prompts) — write just those.
-        # Shared prefix pages already hold these exact bytes and are never
-        # written in place; the diverging page goes private first
-        first_page = refs[0].logical_idx
-        lo = skip_pages if cow_page < 0 else cow_page
-        if cow_page >= 0:
-            self.pool.ensure_private(req.rid, cow_page)
-        if lo < len(refs):
-            span = (first_page + lo) * page
-            self.pool.write_blocks(
-                [r.slot for r in refs[lo:]],
-                *PD.pack_pages(k_seq[:, span:], v_seq[:, span:],
-                               len(refs) - lo, page))
+        with T.span("admit.prefill", tokens=n,
+                    device=self.on_card):
+            if self.family == "hybrid":
+                logits, k_seq, v_seq, blob = self._prefill(
+                    self.params, self._tensor(toks), n)
+                bref = self.pool.blob_ref(req.rid)
+                self.pool.write_blob(bref.slot, blob[0])
+                self.slot_blob[slot] = bref.slot
+            else:
+                logits, k_seq, v_seq = self._prefill(self.params,
+                                                     self._tensor(toks), n)
+            self.prefill_compute_tokens += n   # monolithic: full compute
+            # windowed archs: only the window-covering tail pages were
+            # allocated (refs[0].logical_idx > 0 for long prompts) —
+            # write just those. Shared prefix pages already hold these
+            # exact bytes and are never written in place; the diverging
+            # page goes private first
+            first_page = refs[0].logical_idx
+            lo = skip_pages if cow_page < 0 else cow_page
+            if cow_page >= 0:
+                self.pool.ensure_private(req.rid, cow_page)
+            if lo < len(refs):
+                span = (first_page + lo) * page
+                self.pool.write_blocks(
+                    [r.slot for r in refs[lo:]],
+                    *PD.pack_pages(k_seq[:, span:], v_seq[:, span:],
+                                   len(refs) - lo, page))
         self._seat(slot, req, refs, logits, now)
         return True
 
@@ -482,15 +487,17 @@ class RealInstance:
         stamp TTFT — shared by colocated seating and the handoff path (the
         PREFILL side samples, so TTFT means prefill completion in both
         modes)."""
-        first = sample(logits, generator=self._generator,
-                       temperature=self.ecfg.temperature)
-        req.output_tokens = [int(first[0])]
-        req.generated = 1
-        req.prefill_progress = 1.0
-        if req.first_token_time < 0:
-            # stamp AFTER the prefill (first_token_time - admit_time is the
-            # prefill cost)
-            req.first_token_time = self._stamp(now)
+        with T.span("prefill.first_token"):
+            first = sample(logits, generator=self._generator,
+                           temperature=self.ecfg.temperature)
+            req.output_tokens = [int(first[0])]
+            req.generated = 1
+            T.token(req.rid)
+            req.prefill_progress = 1.0
+            if req.first_token_time < 0:
+                # stamp AFTER the prefill (first_token_time - admit_time is
+                # the prefill cost)
+                req.first_token_time = self._stamp(now)
 
     def _seat(self, slot: int, req: Request, refs, logits, now: float):
         """Admission tail: point the slot at its pages, sample the prompt's
@@ -523,16 +530,24 @@ class RealInstance:
         number of chunks run."""
         if not self.alive or not self.prefill_jobs:
             return 0
-        ran = 0
-        for slot in sorted(self.prefill_jobs):
-            job = self.prefill_jobs[slot]
-            req = job["req"]
-            n = req.prompt_len
-            # short prompts collapse to a single whole-bucket chunk; both
-            # sizes are powers of two, so chunks tile the bucket exactly
-            c = min(self.chunk, job["bucket"])
-            c0 = job["done"]
-            take = min(c, n - c0)
+        slots = sorted(self.prefill_jobs)
+        for slot in slots:
+            self._run_chunk(slot, self.prefill_jobs[slot], now)
+        return len(slots)
+
+    def _run_chunk(self, slot: int, job: dict, now: float):
+        """One chunk of ``slot``'s prompt: its forward pass, the pages it
+        completes, and after the final chunk the first token and the
+        seat."""
+        req = job["req"]
+        n = req.prompt_len
+        # short prompts collapse to a single whole-bucket chunk; both
+        # sizes are powers of two, so chunks tile the bucket exactly
+        c = min(self.chunk, job["bucket"])
+        c0 = job["done"]
+        take = min(c, n - c0)
+        with T.span("prefill.chunk", tokens=take,
+                    device=self.on_card):
             tc = self._tensor(job["toks"][:, c0:c0 + c])
             if self.family == "hybrid":
                 logits, _, _, job["rstates"], blob = self._prefill_chunk(
@@ -544,7 +559,6 @@ class RealInstance:
             job["done"] = c0 + take
             self.prefill_compute_tokens += take
             req.prefill_progress = job["done"] / n
-            ran += 1
             final = job["done"] >= n
             self._write_ready_pages(job, final)
             if final:
@@ -566,7 +580,6 @@ class RealInstance:
                 else:
                     self._seat(slot, req, job["refs"], logits, now)
                 del self.prefill_jobs[slot]
-        return ran
 
     def _write_ready_pages(self, job: dict, final: bool):
         """Incremental page writes: pages fully covered by the rows prefilled
@@ -585,22 +598,24 @@ class RealInstance:
         lo = job["pages_written"]
         if ready <= lo:
             return
-        cow = job["cow_page"]
-        if 0 <= cow < ready:
-            # this batch writes into a shared page the prompt diverges
-            # inside: copy-on-write to a private slot before the write
-            # lands (the interned page is never mutated in place)
-            self.pool.ensure_private(job["req"].rid, refs[cow].logical_idx)
-            job["cow_page"] = -1
-        kv_dt = PD.kv_dtype(self.cfg)
-        span0 = (first_page + lo) * page
-        span1 = (first_page + ready) * page
-        self.pool.write_blocks(
-            [r.slot for r in refs[lo:ready]],
-            *PD.pack_pages(job["k_buf"][:, span0:span1].to(kv_dt),
-                           job["v_buf"][:, span0:span1].to(kv_dt),
-                           ready - lo, page))
-        job["pages_written"] = ready
+        with T.span("prefill.write_pages"):
+            cow = job["cow_page"]
+            if 0 <= cow < ready:
+                # this batch writes into a shared page the prompt diverges
+                # inside: copy-on-write to a private slot before the write
+                # lands (the interned page is never mutated in place)
+                self.pool.ensure_private(job["req"].rid,
+                                         refs[cow].logical_idx)
+                job["cow_page"] = -1
+            kv_dt = PD.kv_dtype(self.cfg)
+            span0 = (first_page + lo) * page
+            span1 = (first_page + ready) * page
+            self.pool.write_blocks(
+                [r.slot for r in refs[lo:ready]],
+                *PD.pack_pages(job["k_buf"][:, span0:span1].to(kv_dt),
+                               job["v_buf"][:, span0:span1].to(kv_dt),
+                               ready - lo, page))
+            job["pages_written"] = ready
 
     # -- one continuous-batching iteration ------------------------------------
     def step(self, now: float = 0.0) -> List[Request]:
@@ -613,6 +628,22 @@ class RealInstance:
                   if r >= 0 and self.requests[r].state == RequestState.DECODE]
         if not active:
             return []
+        with T.span("decode.prepare"):
+            inputs = self._decode_inputs(active)
+        with T.span("decode.launch", tokens=len(active)):
+            nxt, _ = self._decode(*inputs)
+        with T.span("decode.sync"):
+            nxt = nxt.cpu().numpy()        # the step's single host sync
+        with T.span("decode.commit"):
+            return self._commit_decode(active, nxt, now)
+
+    def _decode_inputs(self, active: List[int]) -> tuple:
+        """The decode program's arguments for this step. Each active slot's
+        last token, with the KV row this step writes accounted: out-of-window
+        pages recycled, a fresh block opened where the row needs one, and the
+        slot's block-table row brought up to date; then the host state
+        uploaded (each upload waits for the work queued on the card before
+        it)."""
         toks = np.zeros(self.ecfg.max_slots, np.int32)
         for i in active:
             rid = self.slot_rid[i]
@@ -647,24 +678,26 @@ class RealInstance:
             self.pool.mark_blob_dirty(rid)
         pool = self.pool
         if self.family == "hybrid":
-            nxt, _ = self._decode(
-                self.params, self._tensor(toks), pool.k, pool.v,
-                pool.k_scale, pool.v_scale, pool.blobs, pool.blob_scales,
-                self._tensor(self.block_table), self._tensor(self.slot_blob),
-                self._tensor(self.slot_pos), self._tensor(self.slot_base),
-                self._generator)
-        else:
-            nxt, _ = self._decode(
-                self.params, self._tensor(toks), pool.k, pool.v,
+            return (self.params, self._tensor(toks), pool.k, pool.v,
+                    pool.k_scale, pool.v_scale, pool.blobs, pool.blob_scales,
+                    self._tensor(self.block_table),
+                    self._tensor(self.slot_blob), self._tensor(self.slot_pos),
+                    self._tensor(self.slot_base), self._generator)
+        return (self.params, self._tensor(toks), pool.k, pool.v,
                 pool.k_scale, pool.v_scale, self._tensor(self.block_table),
                 self._tensor(self.slot_pos), self._tensor(self.slot_base),
                 self._generator)
-        nxt = nxt.cpu().numpy()        # the step's single host sync
+
+    def _commit_decode(self, active: List[int], nxt: np.ndarray,
+                       now: float) -> List[Request]:
+        """Append each active slot's next token; release the requests that
+        reached their budget or the sequence limit, and return them."""
         finished = []
         for i in active:
             req = self.requests[self.slot_rid[i]]
             req.output_tokens.append(int(nxt[i]))
             req.generated += 1
+            T.token(req.rid)
             self.slot_pos[i] += 1
             if req.generated >= req.max_new_tokens or \
                     self.slot_pos[i] >= self.ecfg.max_seq - 1:
@@ -870,6 +903,7 @@ class RealEngine:
         self.cfg = cfg
         self.ecfg = ecfg or EngineConfig()
         self.device = torch.device(device)
+        self.on_card = self.device.type == "cuda"   # device spans time there
         # monotonic engine time: ticks (one per step) by default, or the
         # injected wall clock
         self.clock = clock
@@ -924,7 +958,9 @@ class RealEngine:
         self.t = self.clock() if self.clock is not None else 0.0
         # standard-recovery stall: until this time the WHOLE group is down
         self.stall_until = -1.0
-        # one dict per fail_instance call; "mttr" lands at rejoin time
+        # one dict per fail_instance call; "mttr" lands when the rejoin
+        # starts, so it reads the rejoin schedule: the measured rebuild is
+        # the fault.recover_instance span (tracing)
         self.failure_events: List[dict] = []
         self.repl_steps = 0
         self.active_request_steps = 0
@@ -1578,80 +1614,81 @@ class RealEngine:
         inst = self.instances[instance_id]
         if not inst.alive:
             return []      # already dead: idempotent (e.g. an HTTP retry)
-        if self.clock is not None:
-            self.t = self.clock()   # admin-thread call: stamp failure now
-        # async-replication barrier: the last step's staged delta lands on
-        # the hosts before any replica is promoted or dropped; copies INTO
-        # the dying instance are dropped
-        self.flush_replication(exclude=instance_id)
-        standard = self.ecfg.recovery == "standard"
-        victims = list(inst.requests.values())
-        drained = self.queues[instance_id]
-        self.queues[instance_id] = []
-        inst.fail()
-        self.control.view.mark_failed(instance_id)
-        event = {"instance": instance_id, "granularity": "instance",
-                 "shard_idx": None, "mode": self.ecfg.recovery,
-                 "t_fail": self.t, "n_victims": len(victims),
-                 "requeued": len(drained), "resumed": 0, "restarted": 0,
-                 "t_rejoin": -1.0, "mttr": -1.0}
-        self.failure_events.append(event)
-        resumed = []
-        if self._handoffs:
-            victims = self._handoffs_on_fail(instance_id, victims, resumed,
-                                             event, standard)
-        restarted: List[Request] = []
-        for req in victims:
-            meta = self.replica_meta.pop(req.rid, None)
-            target = None
-            if meta is not None and self.instances[meta["home"]].alive:
-                target = self.instances[meta["home"]]
-            if not standard and target is not None and \
-                    target.adopt_replica(meta["peer"], req, meta):
-                resumed.append(req.rid)
-                event["resumed"] += 1
+        with T.span("fault.instance", device=self.on_card):
+            if self.clock is not None:
+                self.t = self.clock()   # admin-thread call: stamp failure now
+            # async-replication barrier: the last step's staged delta lands on
+            # the hosts before any replica is promoted or dropped; copies INTO
+            # the dying instance are dropped
+            self.flush_replication(exclude=instance_id)
+            standard = self.ecfg.recovery == "standard"
+            victims = list(inst.requests.values())
+            drained = self.queues[instance_id]
+            self.queues[instance_id] = []
+            inst.fail()
+            self.control.view.mark_failed(instance_id)
+            event = {"instance": instance_id, "granularity": "instance",
+                     "shard_idx": None, "mode": self.ecfg.recovery,
+                     "t_fail": self.t, "n_victims": len(victims),
+                     "requeued": len(drained), "resumed": 0, "restarted": 0,
+                     "t_rejoin": -1.0, "mttr": -1.0}
+            self.failure_events.append(event)
+            resumed = []
+            if self._handoffs:
+                victims = self._handoffs_on_fail(instance_id, victims, resumed,
+                                                 event, standard)
+            restarted: List[Request] = []
+            for req in victims:
+                meta = self.replica_meta.pop(req.rid, None)
+                target = None
+                if meta is not None and self.instances[meta["home"]].alive:
+                    target = self.instances[meta["home"]]
+                if not standard and target is not None and \
+                        target.adopt_replica(meta["peer"], req, meta):
+                    resumed.append(req.rid)
+                    event["resumed"] += 1
+                else:
+                    if target is not None:
+                        target.pool.drop_replica(meta["peer"], req.rid)
+                    req.restart()
+                    req.state = RequestState.QUEUED
+                    event["restarted"] += 1
+                    restarted.append(req)
+            # restarted victims requeue ahead of everything else, in their
+            # original order
+            for req in reversed(restarted):
+                self._route(req, front=True)
+            for req in drained:
+                self._route(req)
+            # replicas the dead instance hosted for others are gone: mark those
+            # primaries dirty so the next pass re-replicates to a new target
+            for other in self.instances:
+                if not other.alive:
+                    continue
+                for rid in other.requests:
+                    meta = self.replica_meta.get(rid)
+                    if meta is not None and meta["home"] == instance_id:
+                        self.replica_meta.pop(rid)
+                        for ref in other.pool.table(rid):
+                            ref.replicated = False
+                        other.pool.mark_blob_dirty(rid)
+            # the dead pool's interned pages died with it: forget its hosting
+            # keys so a re-host after rejoin counts as a fresh hosting AND a
+            # fresh copy — the ship-ratio denominator tracks live state
+            self._shared_hosted_keys = {
+                (t, k) for (t, k) in self._shared_hosted_keys
+                if t != instance_id}
+            if standard:
+                self.stall_until = self.t + self.ecfg.reload_penalty
+            if self.ecfg.auto_rejoin:
+                delay = self.ecfg.reload_penalty if standard \
+                    else self.ecfg.rejoin_delay
+                self.control.planner.on_failure(instance_id, self.t,
+                                                rejoin_at=self.t + delay,
+                                                kind="instance")
             else:
-                if target is not None:
-                    target.pool.drop_replica(meta["peer"], req.rid)
-                req.restart()
-                req.state = RequestState.QUEUED
-                event["restarted"] += 1
-                restarted.append(req)
-        # restarted victims requeue ahead of everything else, in their
-        # original order
-        for req in reversed(restarted):
-            self._route(req, front=True)
-        for req in drained:
-            self._route(req)
-        # replicas the dead instance hosted for others are gone: mark those
-        # primaries dirty so the next pass re-replicates to a new target
-        for other in self.instances:
-            if not other.alive:
-                continue
-            for rid in other.requests:
-                meta = self.replica_meta.get(rid)
-                if meta is not None and meta["home"] == instance_id:
-                    self.replica_meta.pop(rid)
-                    for ref in other.pool.table(rid):
-                        ref.replicated = False
-                    other.pool.mark_blob_dirty(rid)
-        # the dead pool's interned pages died with it: forget its hosting
-        # keys so a re-host after rejoin counts as a fresh hosting AND a
-        # fresh copy — the ship-ratio denominator tracks live state
-        self._shared_hosted_keys = {
-            (t, k) for (t, k) in self._shared_hosted_keys
-            if t != instance_id}
-        if standard:
-            self.stall_until = self.t + self.ecfg.reload_penalty
-        if self.ecfg.auto_rejoin:
-            delay = self.ecfg.reload_penalty if standard \
-                else self.ecfg.rejoin_delay
-            self.control.planner.on_failure(instance_id, self.t,
-                                            rejoin_at=self.t + delay,
-                                            kind="instance")
-        else:
-            self.control.planner.on_failure(instance_id, self.t,
-                                            kind="instance")
+                self.control.planner.on_failure(instance_id, self.t,
+                                                kind="instance")
         return resumed
 
     def _apply_shard_fault(self, instance_id: int,
@@ -1771,33 +1808,41 @@ class RealEngine:
         ring."""
         if self.instances[instance_id].alive:
             raise ValueError(f"instance {instance_id} is alive")
-        if self.clock is not None:
-            self.t = self.clock()       # admin-thread call: stamp MTTR now
-        # barrier before the instance object (and its pool) is replaced
-        self.flush_replication()
-        self.control.planner.on_rejoined(instance_id, self.t)
-        inst = self._make_instance(instance_id)
-        self.instances[instance_id] = inst
-        self.queues[instance_id] = []
-        self.control.view.mark_alive(instance_id)
-        # fresh pool, no hosted keys (the fault already pruned them)
-        self._shared_hosted_keys = {
-            (t, k) for (t, k) in self._shared_hosted_keys
-            if t != instance_id}
-        for event in reversed(self.failure_events):
-            if event["instance"] == instance_id and \
-                    event["granularity"] == "instance" and \
-                    event["t_rejoin"] < 0:
-                event["t_rejoin"] = self.t
-                event["mttr"] = self.t - event["t_fail"]
-                break
-        # parked arrivals (possible while NO instance was alive) flow again
-        while self.waiting:
-            self._route(self.waiting.pop(0))
+        with T.span("fault.recover_instance", device=self.on_card):
+            if self.clock is not None:
+                # the rejoin's time: an auto-rejoin runs when its schedule
+                # falls due, so t_rejoin - t_fail (mttr) reads rejoin_delay
+                self.t = self.clock()
+            # barrier before the instance object (and its pool) is replaced
+            self.flush_replication()
+            self.control.planner.on_rejoined(instance_id, self.t)
+            inst = self._make_instance(instance_id)
+            self.instances[instance_id] = inst
+            self.queues[instance_id] = []
+            self.control.view.mark_alive(instance_id)
+            # fresh pool, no hosted keys (the fault already pruned them)
+            self._shared_hosted_keys = {
+                (t, k) for (t, k) in self._shared_hosted_keys
+                if t != instance_id}
+            for event in reversed(self.failure_events):
+                if event["instance"] == instance_id and \
+                        event["granularity"] == "instance" and \
+                        event["t_rejoin"] < 0:
+                    event["t_rejoin"] = self.t
+                    event["mttr"] = self.t - event["t_fail"]
+                    break
+            # parked arrivals (possible while NO instance was alive) flow
+            # again
+            while self.waiting:
+                self._route(self.waiting.pop(0))
         return inst
 
     def mttr_events(self) -> List[dict]:
-        """Completed failure->rejoin cycles (mttr in engine clock units)."""
+        """Completed failure->rejoin cycles (mttr in engine clock units).
+        ``mttr`` is stamped when the rejoin starts, so under ``auto_rejoin``
+        it reads the rejoin schedule (``rejoin_delay`` plus the step that
+        ran it), not the rebuild; the rebuild itself is timed by the
+        ``fault.recover_instance`` span (``tracing``)."""
         return [e for e in self.failure_events if e["mttr"] >= 0]
 
     def run(self, max_iters: int = 1000):

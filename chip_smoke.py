@@ -172,9 +172,11 @@ Phases (each raises, and the script exits non-zero, if its check fails):
                 deepest that fits; the peak is printed), fresh random
                 weights: the Llama prompt set served twice over HTTP, an
                 instance kill, the decode profile (synchronizing calls per
-                step equal to the dense step's), and the MoE MLP alone at
-                B 8: device time per layer and step beside its weight-read
-                bound.
+                step equal to the dense step's), the routed-MLP kernel once
+                a layer in every serving step, and the routed MLP alone
+                (kernel and plain version) at decode B 8 and B 32 and a
+                256-token prompt: device time per call and step beside its
+                least time.
   23. moe invariants / moe window mixtral-8x7b — engines stepped by hand,
                 every stream bit for bit: chunked prefill (chunks of 64)
                 equal to the monolithic streams of phase 22; the
@@ -186,7 +188,8 @@ Phases (each raises, and the script exits non-zero, if its check fails):
                 257 resident), and a kill after the slide resumes both
                 streams byte-identically.
   24. moe config dbrx-132b — after freeing mixtral: 11 of 40 layers, the
-                same serving, kill, decode and MoE MLP profiles as phase 22.
+                same serving, kill, decode and MoE MLP profiles as phase 22,
+                and the same invariants as phase 23.
   25. hybrid config recurrentgemma-9b — after freeing dbrx: full width and
                 all 38 layers (26 RG-LRU, 12 local attention; fresh random
                 weights): the Llama prompt set served twice over HTTP (equal
@@ -310,6 +313,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.configs import InputShape, get_config  # noqa: E402
 from repro_torch.core.cluster import build_group  # noqa: E402
 from repro_torch.core.communicator import CommunicatorManager  # noqa: E402
+from repro_torch.kernels import moe_mlp as MOE  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
 from repro_torch.kernels import paged_attention_int8 as PA8  # noqa: E402
 from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
@@ -2734,7 +2738,7 @@ def dense_config_phases(card) -> dict:
 # 80GB HBM3 (700 W): the phases' peak at a probe depth plus a layer's
 # bytes (mixtral 25 -> 26 fits, dbrx 11 -> 12 does not); each config's
 # peak is printed
-MOE_CONFIGS = (("mixtral-8x7b", 26, True), ("dbrx-132b", 11, False))
+MOE_CONFIGS = (("mixtral-8x7b", 26, True), ("dbrx-132b", 11, True))
 MOE_DEPTH_CUTS = {
     "mixtral-8x7b": "all 32 layers are 92.9 GB of bf16 weights; a layer "
                     "adds 2.70 GiB, and on an H100 80GB HBM3 every phase at "
@@ -2793,71 +2797,130 @@ def engine_run(cfg, params, ecfg, waves, n_new, kill=None):
     return [r.output_tokens for r in reqs], reqs, peak, eng
 
 
+def moe_close(got, want):
+    """The kernel's output against the plain version's, with the card
+    tests' limits (``tests/test_torch_gpu.py`` ``_moe_close``): the same
+    exact products summed in another order, so every output within one bf16
+    step (or 1e-5 of the largest output, where a sum cancels near 0) and
+    under 2% of outputs different at all. Returns (max |got - want|, the
+    share that differs, whether both limits hold)."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    step = w.abs() * 2.0 ** -7 + 1e-5 * float(w.abs().max())
+    share = float((diff > 0).float().mean())
+    return float(diff.max()), share, bool((diff <= step).all()) and \
+        share < 0.02
+
+
+def rounded_h_control(cfg, p, x, topk_i, topk_p):
+    """The plain version with h = silu(G) U rounded to bf16 before the down
+    projection, a lower precision than the f32 expert math: ``moe_close``
+    must refuse it. x (T, d); topk_i, topk_p (T, k)."""
+    ex, x32 = p["experts"], x.float()
+    weights = torch.zeros((x.shape[0], cfg.n_experts), device=x.device)
+    weights.scatter_(1, topk_i, topk_p)
+    out = torch.zeros_like(x32)
+    for e in range(cfg.n_experts):
+        h = torch.nn.functional.silu(x32 @ ex["w_gate"][e].float()) \
+            * (x32 @ ex["w_up"][e].float())
+        out += weights[:, e:e + 1] * (h.bfloat16().float()
+                                      @ ex["w_down"][e].float())
+    return out.to(x.dtype)
+
+
 def moe_mlp_profile(card, cfg, params):
-    """``moe.decode_mlp`` alone on layer 0 at B 8: device time per call
-    (kernel sums under torch.profiler, and CUDA events around 5 calls),
-    times the layers, beside the weight-read bound (every expert's three
-    bf16 matrices read once)."""
+    """The routed MLP of layer 0 alone as serving calls it (no aux loss),
+    at decode B 8 and B 32 (one routing group, drop-free) and serving
+    prefill T 256 (64-row router blocks). Checks the kernel's output
+    against the plain version's (``expert_mix``) from the same inputs
+    (``moe_close``), and that the check refuses a bf16-rounded h. Times by
+    CUDA events (10 calls after 2): the kernel alone on the call's routing,
+    the whole call (routing included) and the plain version; per call and
+    per step (times the layers), beside the least time: reading every
+    expert's three bf16 matrices once, or the real tokens' top-k products
+    at the bf16 peak, whichever is longer. Returns each case's numbers."""
     p = layer_params(params["layers"], 0)
+    ex = p["experts"]
     gen = torch.Generator(device="cuda").manual_seed(5)
-    x = torch.randn((8, 1, cfg.d_model), generator=gen,
-                    device="cuda").to(params["embed"]["tok"].dtype)
-    for _ in range(2):
-        moe.decode_mlp(cfg, p, x)
-    n = 5
-    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(n):
-        moe.decode_mlp(cfg, p, x)
-    stop.record()
-    torch.cuda.synchronize()
-    events_ms = start.elapsed_time(stop) / n
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(n):
-            moe.decode_mlp(cfg, p, x)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / n / 1e3
-    w = p["experts"]["w_gate"]
-    nbytes = 3 * w.numel() * w.element_size()
-    bound = nbytes / HBM_BYTES_PER_S * 1e3
-    m = {"layer_device_busy_ms": busy, "layer_events_ms": events_ms,
-         "step_device_busy_ms": busy * cfg.n_layers,
-         "layer_bound_ms": bound, "step_bound_ms": bound * cfg.n_layers,
-         "share_of_bound": bound / busy if busy else None,
-         "launches_per_layer": sum(e.count for e in kernels) / n}
-    print(f"MoE MLP per decode step [{cfg.name}] [{card}]: " + json.dumps(m))
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
-        print(f"  device ms/layer {e.self_device_time_total / n / 1e3:8.3f}"
-              f"  launches/layer {e.count / n:6.1f}  {e.key[:90]}")
-    return m
+    dt = params["embed"]["tok"].dtype
+    w = ex["w_gate"]
+    weight_ms = 3 * w.numel() * w.element_size() / HBM_BYTES_PER_S * 1e3
+    cf = float(cfg.n_experts)
+    out = {}
+    for case, (b, s) in (("decode_b8", (8, 1)), ("decode_b32", (32, 1)),
+                         ("prefill_t256", (1, 256))):
+        x = torch.randn((b, s, cfg.d_model), generator=gen,
+                        device="cuda").to(dt)
+        tokens, g = b * s, min(b * s, moe.GROUP_SIZE)
+        rows = 0 if s == 1 else PD.PREFILL_ROWS
+
+        def call(kernel=None):
+            return moe.moe_mlp(cfg, p, x, capacity_factor=cf, group_size=g,
+                               rows=rows, kernel=kernel, aux=False)[0]
+
+        x2 = x.reshape(tokens, cfg.d_model)
+        _, topk_i, topk_p = moe.gates(
+            cfg, p["router"], x2.reshape(tokens // g, g, -1), rows)
+        topk_i = topk_i.reshape(tokens, -1).contiguous()
+        topk_p = topk_p.reshape(tokens, -1).contiguous()
+        got, want = call(), call(False)
+        err, share, ok = moe_close(got, want)
+        check(ok, f"MoE MLP {case} [{cfg.name}]: the kernel differs from "
+              f"the plain version: max |diff| {err:.3e}, {share:.2%} of "
+              "outputs differ")
+        _, rounded_share, passed = moe_close(rounded_h_control(
+            cfg, p, x2, topk_i, topk_p).reshape(want.shape), want)
+        check(not passed, f"MoE MLP {case} [{cfg.name}]: the check passes "
+              f"a bf16-rounded h ({rounded_share:.2%} of outputs differ)")
+        kernel_ms = events_ms(lambda: MOE.routed_mlp(
+            x2, ex["w_gate"], ex["w_up"], ex["w_down"], topk_i, topk_p,
+            tall=s > 1))
+        call_ms, plain_ms = events_ms(call), events_ms(lambda: call(False))
+        flops_ms = 6 * cfg.d_model * cfg.d_ff * cfg.top_k * tokens / \
+            PEAK_FLOPS[torch.bfloat16] * 1e3
+        bound = max(weight_ms, flops_ms)
+        m = {"kernel_ms": kernel_ms, "call_ms": call_ms,
+             "plain_ms": plain_ms, "bound_ms": bound,
+             "bound_by": "bytes" if weight_ms >= flops_ms else "operations",
+             "share_of_bound": bound / kernel_ms,
+             "step_ms": call_ms * cfg.n_layers,
+             "step_bound_ms": bound * cfg.n_layers,
+             "max_abs_err": err, "share_different": share,
+             "rounded_h_share_different": rounded_share}
+        out[case] = m
+        print(f"MoE MLP {case} [{cfg.name}] [{card}]: " + json.dumps(m))
+    return out
 
 
 def moe_config_phase(card, cfg, params, dense_syncs):
     """Phase "moe config NAME": the Llama prompt set served twice (equal
     streams), an instance kill (streams equal failure-free), the decode
     profile; the synchronizing calls in one decode step, which must be as
-    many as the dense Llama step's; the MoE MLP's device time. Returns
-    (launches, prompts, their streams)."""
+    many as the dense Llama step's; the routed MLP through its kernel once
+    a layer, then against its plain version and timed (``moe_mlp_profile``).
+    Returns (attention launches, prompts, their streams, routed-MLP kernel
+    calls while serving, the profile)."""
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
                for n in SERVE_PROMPT_LENS]
     prompts.append(list(prompts[1]))          # the same prompt twice
     check(block_bytes(cfg, False) == cfg.n_layers * 65_536, "block bytes")
+    MOE.launches = 0
     launches, _, profile, streams = run_path(
         card, cfg, EngineConfig(max_slots=8, max_seq=256), PA, PA8,
         cfg.name, prompts, params=params, repeat=True)
+    calls = MOE.launches
+    print(f"[{cfg.name}] routed-MLP kernel calls while serving: {calls} "
+          f"({calls / cfg.n_layers:.0f} a layer)")
+    check(calls > 0 and calls % cfg.n_layers == 0, "the routed MLP did not "
+          "go through its kernel once a layer")
     syncs = profile["syncs_per_step"]
     print(f"[{cfg.name}] synchronizing calls in one decode step: {syncs} "
           f"(dense llama3-8b step: {dense_syncs})")
     check(syncs == dense_syncs, f"the MoE decode step makes {syncs} "
           f"synchronizing calls, the dense step {dense_syncs}")
-    moe_mlp_profile(card, cfg, params)
-    return launches, prompts, streams
+    return launches, prompts, streams, calls, moe_mlp_profile(card, cfg,
+                                                              params)
 
 
 def moe_invariants_phase(card, cfg, params, prompts, streams) -> dict:
@@ -2966,12 +3029,14 @@ def window_phase(card, cfg, params, label, prompt_len, n_new) -> int:
     return n + n2
 
 
-def moe_phases(card, dense_syncs, configs=MOE_CONFIGS) -> dict:
-    """mixtral-8x7b (config, invariants, window) and dbrx-132b (config)
-    at full width, cut in depth, each on fresh random weights
-    (torch.Generator seed 0) and freed before the next. Returns each
-    attention kernel's launches."""
-    out = {"paged_attention": 0, "paged_attention_int8": 0}
+def moe_phases(card, dense_syncs, configs=MOE_CONFIGS) -> tuple:
+    """mixtral-8x7b (config, invariants, window) and dbrx-132b (config,
+    invariants) at full width, cut in depth, each on fresh random weights
+    (torch.Generator seed 0) and freed before the next. Returns (each
+    kernel's launches on these serving paths, each config's
+    ``moe_mlp_profile``)."""
+    out = {"paged_attention": 0, "paged_attention_int8": 0, "moe_mlp": 0}
+    profiles = {}
     for name, depth, invariants in configs:
         full = get_config(name)
         cfg = dataclasses.replace(full, n_layers=depth)
@@ -2992,19 +3057,24 @@ def moe_phases(card, dense_syncs, configs=MOE_CONFIGS) -> dict:
               f"{cfg.n_active_params() / 1e9:.2f} B active; random weights "
               f"made in {time.perf_counter() - t0:.1f} s ({before:.1f} GiB "
               "allocated before)")
-        n, prompts, streams = moe_config_phase(card, cfg, params,
-                                               dense_syncs)
+        n, prompts, streams, calls, profiles[name] = moe_config_phase(
+            card, cfg, params, dense_syncs)
         out["paged_attention"] += n
+        out["moe_mlp"] += calls
         if invariants:
             phase(f"moe invariants {name}")
+            MOE.launches = 0
             for kernel, k in moe_invariants_phase(card, cfg, params, prompts,
                                                   streams).items():
                 out[kernel] += k
+            out["moe_mlp"] += MOE.launches
         if cfg.sliding_window:
             label = f"moe window {name}"
             phase(label)
+            MOE.launches = 0
             out["paged_attention"] += window_phase(
                 card, cfg, params, label, WINDOW_PROMPT, WINDOW_NEW)
+            out["moe_mlp"] += MOE.launches
         card_gib = torch.cuda.get_device_properties(0).total_memory / 2**30
         print(f"[{name}] {depth} layers: peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
@@ -3013,14 +3083,38 @@ def moe_phases(card, dense_syncs, configs=MOE_CONFIGS) -> dict:
         del params
         gc.collect()
         torch.cuda.empty_cache()
-    return out
+    return out, profiles
 
 
-def serving_phases(card: str) -> dict:
+def moe_entry(profiles) -> dict:
+    """The routed MLP's line in the summary's ``kernels``: the first
+    config's decode at 32 slots (the batch cell's decode shape) in front,
+    every case of every config under ``cases``."""
+    name, first = next(iter(profiles.items()))
+    head = first["decode_b32"]
+    return {"name": "moe_mlp", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/moe_mlp.cu",
+            "replaces": "none: the reference's routed MLP "
+                        "(src/repro/models/moe.py) is one-hot einsums that "
+                        "XLA compiles, with no Pallas kernel",
+            "max_abs_err": max(c["max_abs_err"] for p in profiles.values()
+                               for c in p.values()),
+            "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": None,
+            "library_note": "n/a: no single PyTorch call routes each token "
+                            "through its own experts",
+            "shape": f"one {name} layer, decode at 32 slots; the four "
+                     "kernels alone (CUDA events)",
+            "cases": profiles}
+
+
+def serving_phases(card: str) -> tuple:
     """The bf16 path, the int8 + chunked-prefill path, the prefix-cache and
     disaggregated paths, the 8-instance fleet, decoupled init and the
     open-loop failure drill, all on the same Llama-3.1-8B weights; then the other dense configs, the MoE configs and
-    the hybrid config. Returns each kernel's launches on its paths."""
+    the hybrid config. Returns (each kernel's launches on its paths, the
+    routed MLP's ``kernels`` entry)."""
     cfg = get_config("llama3-8b")
     print(f"model {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"vocab {cfg.vocab_size}, {cfg.n_params() / 1e9:.2f} B params, "
@@ -3048,12 +3142,14 @@ def serving_phases(card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     launches = dense_config_phases(card)
-    for name, n in moe_phases(card, profile["syncs_per_step"]).items():
-        launches[name] += n
+    moe_launches, profiles = moe_phases(card, profile["syncs_per_step"])
     for name, n in hybrid_phases(card, profile["syncs_per_step"]).items():
         launches[name] += n
-    return {"paged_attention": bf16 + launches["paged_attention"],
-            "paged_attention_int8": int8 + launches["paged_attention_int8"]}
+    return {"paged_attention": bf16 + launches["paged_attention"]
+            + moe_launches["paged_attention"],
+            "paged_attention_int8": int8 + launches["paged_attention_int8"]
+            + moe_launches["paged_attention_int8"],
+            "moe_mlp": moe_launches["moe_mlp"]}, moe_entry(profiles)
 
 
 # -- 25.-27. hybrid config ----------------------------------------------------
@@ -4149,11 +4245,11 @@ def train_only(card: str) -> int:
 
 
 def build_all():
-    """The four kernel libraries from source (paged attention on bf16 and
-    int8 pools, the SSD scan and its backward), one nvcc process per
-    source, all started together."""
+    """The five kernel libraries from source (paged attention on bf16 and
+    int8 pools, the SSD scan and its backward, the routed MLP), one nvcc
+    process per source, all started together."""
     t0 = time.perf_counter()
-    kls = (PA.LIB, PA8.LIB, SSD.LIB, SSD.LIB_BWD)
+    kls = (PA.LIB, PA8.LIB, SSD.LIB, SSD.LIB_BWD, MOE.LIB)
     with concurrent.futures.ThreadPoolExecutor(len(kls)) as pool:
         libs = list(pool.map(lambda k: k.build(), kls))   # re-raises
     for k, lib in zip(kls, libs):
@@ -4230,7 +4326,8 @@ def main() -> int:
     phase("kernel (ssd_scan backward)")
     entries.append(ssd_scan_backward_phase())
 
-    launches = serving_phases(card)
+    launches, moe_mlp = serving_phases(card)
+    entries.append(moe_mlp)
     phase("mamba2 generation")
     launches["ssd_scan"] = mamba2_phase(card)
     trained = train_phases(card)

@@ -175,3 +175,22 @@ def ssd_scan_backward_ref(xdt, a, B, C, h0, gy, gh=None):
 
     return (joined(dx, xdt), joined(da, a), joined(dB, B), joined(dC, C),
             None if h0 is None else dS.to(h0.dtype))
+
+
+# --------------------------------------------------------------------------
+# routed MLP (csrc/moe_mlp.cu): the down kernel's exact split of h
+# --------------------------------------------------------------------------
+
+def moe_split3(h):
+    """f32 ``h`` as three bf16 tensors with hi + mid + lo == h exactly (for
+    |h| >= 2^-110 and 0): each part the top 16 bits of what the parts before
+    it left, as the down kernel splits its A operand."""
+    mask = -65536                                   # 0xffff0000 as int32
+
+    def top(v):
+        return (v.view(torch.int32) & mask).view(torch.float32)
+
+    hi = top(h)
+    r = h - hi
+    mid = top(r)
+    return hi.bfloat16(), mid.bfloat16(), (r - mid).bfloat16()

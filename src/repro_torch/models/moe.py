@@ -21,10 +21,20 @@ the expert FLOPs of a dispatch; the weight bytes read are the same.
 The expert math is f32 on upcast operands, as in the reference: each
 expert's three matrices are upcast one expert at a time into one f32
 buffer per shape, the SwiGLU and down projection stay in f32, and the
-output is cast to the activation dtype once, at the end. Attention reuses
-the dense stack (incl. SWA). Params keep the reference's layer-stacked
-layout: ``experts.w_*`` (L, E, d, f) / (L, E, f, d), ``router`` (L, d, E)
-in f32.
+output is cast to the activation dtype once, at the end.
+
+On the card, bf16 experts outside autograd go to the routed-MLP kernel
+(``kernels/moe_mlp.py``): each token through its own top-k experts only,
+the bf16 weights straight into the tensor cores, every product exact, the
+sums in a fixed order that never depends on the row count — the same
+function, and the same batch invariance, at the cost of reading the
+weights once. ``expert_mix`` stays the plain version: for CPU tensors,
+under autograd (training), for f32 experts (nothing to upcast) and on the
+mesh and dry-run path.
+
+Attention reuses the dense stack (incl. SWA). Params keep the reference's
+layer-stacked layout: ``experts.w_*`` (L, E, d, f) / (L, E, f, d),
+``router`` (L, d, E) in f32.
 """
 from __future__ import annotations
 
@@ -33,7 +43,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.distributed import layout as ML
+from repro_torch.kernels import moe_mlp as MOE
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import layer_params
@@ -118,6 +130,15 @@ def top_k(probs, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def gates(cfg, router, xg, rows: int = 0):
+    """``route``'s probabilities, top-k experts and renormalised gates,
+    without the capacity mask (every choice kept when the capacity is at
+    least the group's pairs)."""
+    probs = torch.softmax(L.row_matmul(xg.float(), router, rows), dim=-1)
+    topk_p, topk_i = top_k(probs, cfg.top_k)
+    return probs, topk_i, topk_p / (topk_p.sum(dim=-1, keepdim=True) + 1e-9)
+
+
 def route(cfg, router, xg, capacity: int, rows: int = 0):
     """Routing of token groups ``xg`` (G, g, d) through ``router`` (d, E),
     the logits in products of ``rows`` tokens (``L.row_matmul``).
@@ -129,9 +150,7 @@ def route(cfg, router, xg, capacity: int, rows: int = 0):
     choice-minor order, is below ``capacity``."""
     n_groups, g, _ = xg.shape
     e, k = cfg.n_experts, cfg.top_k
-    probs = torch.softmax(L.row_matmul(xg.float(), router, rows), dim=-1)
-    topk_p, topk_i = top_k(probs, k)
-    topk_p = topk_p / (topk_p.sum(dim=-1, keepdim=True) + 1e-9)
+    probs, topk_i, topk_p = gates(cfg, router, xg, rows)
     experts = torch.arange(e, device=xg.device)
     onehot = (topk_i[..., None] == experts).float()          # (G,g,k,E)
     flat = onehot.reshape(n_groups, g * k, e)
@@ -167,6 +186,17 @@ def expert_mix(experts, x32, weights, rows: int = 0):
             * L.row_matmul(x32, wu, rows)
         out += weights[:, e:e + 1] * L.row_matmul(h, wd, rows)
     return out
+
+
+def on_kernel(x, experts) -> bool:
+    """Whether the routed MLP of ``x`` runs on the CUDA kernel: a real
+    (not fake, not mesh) CUDA tensor, bf16 activations and experts, and no
+    gradient to keep."""
+    w = experts["w_gate"]
+    return (type(x) is torch.Tensor and x.is_cuda
+            and x.dtype == w.dtype == torch.bfloat16
+            and not (torch.is_grad_enabled()
+                     and (x.requires_grad or w.requires_grad)))
 
 
 def _mesh_moe_mlp(cfg, p, x, capacity_factor, group_size, rows):
@@ -211,7 +241,7 @@ def _mesh_moe_mlp(cfg, p, x, capacity_factor, group_size, rows):
         lp = {"router": router,
               "experts": {"w_gate": wg, "w_up": wu, "w_down": wd}}
         return moe_mlp(cfg, lp, xl, capacity_factor=capacity_factor,
-                       group_size=group_size, rows=rows)
+                       group_size=group_size, rows=rows, kernel=False)
 
     return ML.on_shards(
         local, mesh, (y_pl, aux_pl),
@@ -223,10 +253,18 @@ def _mesh_moe_mlp(cfg, p, x, capacity_factor, group_size, rows):
 
 
 def moe_mlp(cfg, p, x, *, capacity_factor: float = 1.25,
-            group_size: int = GROUP_SIZE, rows: int = 0):
+            group_size: int = GROUP_SIZE, rows: int = 0,
+            kernel: Optional[bool] = None, aux: bool = True):
     """Routed expert MLP of one layer (params ``p``). x: (B, S, d) ->
-    ((B, S, d) in x's dtype, f32 load-balance aux loss). ``rows``: the
-    matrix products' row blocks (``L.row_matmul``)."""
+    ((B, S, d) in x's dtype, f32 load-balance aux loss, None without
+    ``aux``). ``rows``: the router's (and the plain version's) row blocks
+    (``L.row_matmul``). ``kernel``: None runs the CUDA kernel where
+    ``on_kernel`` holds, False the plain version (``expert_mix``); the
+    kernel's tiles follow S (1: decode, more: a prompt), which never
+    changes a bit. On the kernel the span open around the call
+    (``moe.routed_mlp`` when serving) gets ``pairs`` (dispatched pairs,
+    when no capacity drops any) and ``expert_rows`` (pairs per expert, a
+    device tensor read at the trace's export)."""
     if ML.is_dtensor(x):
         return _mesh_moe_mlp(cfg, p, x, capacity_factor, group_size, rows)
     b, s, d = x.shape
@@ -236,27 +274,49 @@ def moe_mlp(cfg, p, x, *, capacity_factor: float = 1.25,
         raise ValueError(f"tokens {b * s} not divisible by group {g}")
     xg = x.reshape((b * s) // g, g, d)
     cap = int(max(k, g * k / e * capacity_factor))
-    probs, _, topk_p, keep, onehot = route(cfg, p["router"], xg, cap, rows)
-    combine = (onehot * (topk_p * keep)[..., None]).sum(dim=2)   # (G,g,E)
-    out = expert_mix(p["experts"], xg.reshape(b * s, d).float(),
-                     combine.reshape(b * s, e), rows)
+    # a pair's rank is below g * k: that capacity drops none
+    drop_free = cap >= g * k
+    ex = p["experts"]
+    if kernel is None:
+        kernel = on_kernel(x, ex)
+    if kernel and drop_free and not aux:
+        # the kernel needs no mask where it is all true, nor one-hots
+        _, topk_i, topk_p = gates(cfg, p["router"], xg, rows)
+    else:
+        probs, topk_i, topk_p, keep, onehot = route(cfg, p["router"], xg,
+                                                    cap, rows)
+    if kernel:
+        out, expert_rows = MOE.routed_mlp(
+            x.reshape(b * s, d).contiguous(), ex["w_gate"], ex["w_up"],
+            ex["w_down"], topk_i.reshape(b * s, k).contiguous(),
+            topk_p.reshape(b * s, k),
+            None if drop_free else keep.reshape(b * s, k), tall=s > 1)
+        tracing.annotate(expert_rows=expert_rows,
+                         **({"pairs": b * s * k} if drop_free else {}))
+    else:
+        combine = (onehot * (topk_p * keep)[..., None]).sum(dim=2)
+        out = expert_mix(ex, xg.reshape(b * s, d).float(),
+                         combine.reshape(b * s, e), rows)
+    out = out.reshape(b, s, d).to(x.dtype)
+    if not aux:
+        return out, None
     # Switch-style load-balance auxiliary loss
     me = probs.mean(dim=(0, 1))
     ce = (onehot[..., 0, :] if k == 1 else onehot.mean(dim=2)).mean(
         dim=(0, 1))
-    aux = cfg.router_aux_coef * e * (me * ce).sum()
-    return out.reshape(b, s, d).to(x.dtype), aux
+    return out, cfg.router_aux_coef * e * (me * ce).sum()
 
 
 def decode_mlp(cfg, p, x):
     """Routed MLP for the paged decode hot loop. x: (B, 1, d) — one token
     per engine slot, one routing group. Drop-free by default (cf =
     n_experts), so each token's experts depend only on the token, and the
-    products have the fixed shape of the slot count: a slot's output is
-    the same bits whatever the other slots hold. No host sync."""
+    products have the fixed shape of the slot count (the kernel's rows are
+    independent of each other by construction): a slot's output is the
+    same bits whatever the other slots hold. No host sync."""
     cf = DECODE_CAPACITY_FACTOR or float(cfg.n_experts)
     y, _ = moe_mlp(cfg, p, x, group_size=x.shape[0] * x.shape[1],
-                   capacity_factor=cf)
+                   capacity_factor=cf, aux=False)
     return y
 
 
@@ -266,7 +326,7 @@ def serving_prefill_mlp(cfg, p, x, rows: int = 0):
     finite capacity factor would let padding tokens take real tokens'
     expert slots) and of the other tokens; ``rows`` as in ``moe_mlp``."""
     y, _ = moe_mlp(cfg, p, x, capacity_factor=float(cfg.n_experts),
-                   rows=rows)
+                   rows=rows, aux=False)
     return y
 
 

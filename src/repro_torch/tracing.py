@@ -7,12 +7,13 @@ attribute test (no allocation, no clock read) and ``token`` returns at once.
 On, a span records its name, its start and end on the host clock
 (``time.time_ns``: the clock of the benchmark's host stamps and of the
 profiler's device events), the index of the span open around it in the same
-thread, and the real tokens its block computes where it computes any
-(``tokens``). A span opened with ``device=True`` also records a pair of CUDA events on the current
-stream. They are read only by ``export``, so the hot path never waits for the
-card, and there the span ends at the later of its host end and the
-completion of the work it launched; on the CPU the work is done by the host
-end. ``token(rid)`` stamps one produced token of request ``rid``.
+thread, the real tokens its block computes where it computes any
+(``tokens``), and what ``annotate`` adds inside it. A span opened with
+``device=True`` also records a pair of CUDA events on the current stream.
+They are read only by ``export``, so the hot path never waits for the card,
+and there the span ends at the later of its host end and the completion of
+the work it launched; on the CPU the work is done by the host end.
+``token(rid)`` stamps one produced token of request ``rid``.
 
 The engine thread and the admin (fault) thread both record: a lock orders
 the appends, and each thread nests its own spans.
@@ -123,6 +124,16 @@ def span(name: str, device: bool = False, tokens: Optional[int] = None):
                  {} if tokens is None else {"tokens": int(tokens)})
 
 
+def annotate(**attrs):
+    """Add ``attrs`` to the innermost span open in this thread (nothing
+    while off or outside any span). A tensor value is kept as it is, on its
+    device, and read only by ``export``, which gives it as a list."""
+    if REC.on:
+        stack = REC.stack()
+        if stack:
+            REC.spans[stack[-1]][_ATTRS].update(attrs)
+
+
 def token(rid: int):
     """Stamp one token of request ``rid``, produced now."""
     if REC.on:
@@ -181,7 +192,9 @@ def export() -> dict:
         d = {"name": rec[_NAME], "start": rec[_START],
              "end": rec[_END] if done else -1,
              "host_end": rec[_END] if done else -1,
-             "parent": rec[_PARENT], "attrs": dict(rec[_ATTRS])}
+             "parent": rec[_PARENT],
+             "attrs": {k: v.tolist() if isinstance(v, torch.Tensor) else v
+                       for k, v in rec[_ATTRS].items()}}
         if done and rec[_EV1] is not None and anchor is not None:
             d["device_start"], d["device_end"] = _device_times(rec, anchor)
             d["end"] = max(d["end"], d["device_end"])

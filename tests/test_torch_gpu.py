@@ -16,8 +16,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import tracing  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
+from repro_torch.kernels import moe_mlp as MOE  # noqa: E402
 from repro_torch.kernels import paged_attention_int8 as PA8  # noqa: E402
 from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.kernels.ref import (paged_attention_int8_ref,  # noqa: E402
@@ -478,6 +480,223 @@ def test_moe_decode_mlp_slot_is_batch_invariant_on_card(card):
     moved = other.clone()
     moved[5] = x[0]
     assert torch.equal(moe.decode_mlp(cfg, p, moved)[5], y[0])
+
+
+def _moe_layer(card, name, seed=0):
+    """One full-width MoE layer's router (f32, scale 0.02) and bf16 experts
+    (1/sqrt(fan_in)), drawn on the card."""
+    cfg = get_config(name)
+    gen = torch.Generator(card).manual_seed(seed)
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+
+    def draw(*shape):
+        return (torch.randn(shape, generator=gen, device=card)
+                * shape[-2] ** -0.5).bfloat16()
+
+    p = {"router": torch.randn((d, e), generator=gen, device=card) * 0.02,
+         "experts": {"w_gate": draw(e, d, f), "w_up": draw(e, d, f),
+                     "w_down": draw(e, f, d)}}
+    return cfg, p
+
+
+def _moe_close(got, want):
+    """The kernel against the plain version (``expert_mix``): the same
+    exact products (bf16 x bf16, and the down projection's f32 operand
+    split exactly into three bf16 parts) summed in another order, so the
+    f32 sums differ by a few f32 steps and, after the one cast to bf16,
+    an output differs by at most one bf16 step, or by 1e-5 of the largest
+    output where the sum cancels to near 0, and few differ at all (a
+    product rounded to bf16 would move most of them)."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    bad = diff > w.abs() * 2.0 ** -7 + 1e-5 * float(w.abs().max())
+    assert not bool(bad.any()), (g[bad][:8].tolist(), w[bad][:8].tolist())
+    share = float((diff > 0).float().mean())
+    assert share < 0.02, share
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tokens,decode", [(1, True), (8, True),
+                                           (32, True), (64, False),
+                                           (256, False), (1024, False)])
+@pytest.mark.parametrize("name", ["mixtral-8x7b", "dbrx-132b"])
+def test_moe_mlp_kernel_matches_plain(card, name, tokens, decode):
+    """Full-width layer shapes, decode (B slots, one routing group) and
+    serving prefill (T tokens in 64-row router blocks): the kernel path
+    against ``expert_mix``, one call through the kernel each, and two
+    calls the same bits."""
+    cfg, p = _moe_layer(card, name)
+    gen = torch.Generator(card).manual_seed(tokens)
+    shape = (tokens, 1, cfg.d_model) if decode else (1, tokens, cfg.d_model)
+    x = torch.randn(shape, generator=gen, device=card).bfloat16()
+    run = (lambda **kw: moe.moe_mlp(
+        cfg, p, x, group_size=tokens, capacity_factor=float(cfg.n_experts),
+        **kw)[0]) if decode else (lambda **kw: moe.moe_mlp(
+            cfg, p, x, capacity_factor=float(cfg.n_experts),
+            rows=PD.PREFILL_ROWS, **kw)[0])
+    before = MOE.launches
+    got = run()
+    assert MOE.launches == before + 1
+    assert torch.equal(run(), got)
+    _moe_close(got, run(kernel=False))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["mixtral-8x7b", "dbrx-132b"])
+def test_moe_mlp_tile_shapes_give_the_same_bits(card, name):
+    """The decode (32-row) and prompt (128-row) down tiles run the same K
+    order: the same bits for 300 tokens that share a direction, so that
+    some experts get more rows than one tall tile holds."""
+    cfg, p = _moe_layer(card, name, seed=2)
+    t, k = 300, cfg.top_k
+    gen = torch.Generator(card).manual_seed(6)
+    x = (torch.randn((t, cfg.d_model), generator=gen, device=card) * 0.3
+         + torch.randn(cfg.d_model, generator=gen, device=card)).bfloat16()
+    _, topk_i, topk_p, _, _ = moe.route(cfg, p["router"], x[None], t * k)
+    ex = p["experts"]
+    args = (x, ex["w_gate"], ex["w_up"], ex["w_down"],
+            topk_i[0].contiguous(), topk_p[0])
+    short, rows = MOE.routed_mlp(*args)
+    tall, _ = MOE.routed_mlp(*args, tall=True)
+    assert max(rows.tolist()) > 128
+    assert torch.equal(short, tall)
+
+
+@pytest.mark.gpu
+def test_moe_mlp_kernel_drops_what_plain_drops(card):
+    """A finite capacity (cf 1.0 over 32 slots: 8 pairs an expert) drops
+    pairs: the kernel runs exactly the kept ones, and its output is the
+    plain version's, which weights the dropped pairs by 0."""
+    cfg, p = _moe_layer(card, "mixtral-8x7b")
+    t, k, d = 32, cfg.top_k, cfg.d_model
+    x = torch.randn((t, d), generator=torch.Generator(card).manual_seed(2),
+                    device=card).bfloat16()
+    cap = int(t * k / cfg.n_experts)
+    _, topk_i, topk_p, keep, onehot = moe.route(cfg, p["router"], x[None],
+                                                cap)
+    assert not bool(keep.all())
+    ex = p["experts"]
+    got, rows = MOE.routed_mlp(x, ex["w_gate"], ex["w_up"], ex["w_down"],
+                               topk_i[0].contiguous(), topk_p[0], keep[0])
+    kept = torch.zeros(cfg.n_experts, dtype=torch.long, device=card)
+    kept.index_add_(0, topk_i[0][keep[0]], torch.ones_like(
+        topk_i[0][keep[0]]))
+    assert rows.tolist() == kept.tolist()
+    assert max(rows.tolist()) <= cap
+    combine = (onehot[0] * (topk_p[0] * keep[0])[..., None]).sum(dim=1)
+    _moe_close(got, moe.expert_mix(ex, x.float(), combine).bfloat16())
+    got2, _ = moe.moe_mlp(cfg, p, x[:, None], group_size=t,
+                          capacity_factor=1.0)
+    assert torch.equal(got2[:, 0], got)
+
+
+@pytest.mark.gpu
+def test_moe_mlp_kernel_refuses_what_it_does_not_take(card):
+    """Wrong dtype, wrong shape, a tensor off the card, rows off 16 bytes,
+    a width that is no multiple of the tiles: the wrapper raises and
+    launches nothing."""
+    cfg = get_config("mixtral-8x7b").reduced()          # d 256, f 512
+    e, d, f, t, k = cfg.n_experts, cfg.d_model, cfg.d_ff, 4, cfg.top_k
+    w = lambda *s: torch.zeros(s, device=card).bfloat16()  # noqa: E731
+    x, wg, wu, wd = w(t, d), w(e, d, f), w(e, d, f), w(e, f, d)
+    ti = torch.zeros((t, k), dtype=torch.int64, device=card)
+    ti[:, 1] = 1
+    tp = torch.full((t, k), 0.5, device=card)
+    before = MOE.launches
+    with pytest.raises(TypeError):
+        MOE.routed_mlp(x.float(), wg, wu, wd, ti, tp)
+    with pytest.raises(TypeError):
+        MOE.routed_mlp(x, wg, wu, wd, ti.int(), tp)
+    with pytest.raises(ValueError):
+        MOE.routed_mlp(x, wg, wu, wd.transpose(1, 2), ti, tp)
+    with pytest.raises(ValueError):
+        MOE.routed_mlp(x, wg, wu, wd, ti.cpu(), tp)
+    off = torch.zeros(t * d + 1, device=card).bfloat16()[1:].view(t, d)
+    with pytest.raises(ValueError):
+        MOE.routed_mlp(off, wg, wu, wd, ti, tp)
+    with pytest.raises(ValueError):
+        MOE.routed_mlp(x[:, :192].contiguous(), wg[:, :192].contiguous(),
+                       wu[:, :192].contiguous(), wd[..., :192].contiguous(),
+                       ti, tp)
+    assert MOE.launches == before
+    out, rows = MOE.routed_mlp(x, wg, wu, wd, ti, tp)
+    assert MOE.launches == before + 1
+    assert rows.tolist() == [t, t] + [0] * (e - 2)
+    assert not bool(out.float().abs().sum())
+
+
+@pytest.mark.gpu
+def test_moe_kernel_path_annotates_its_span(card):
+    """Inside a span, the kernel path adds ``pairs`` (drop-free) and
+    ``expert_rows`` (the dispatch's device tensor, a list at export,
+    summing to the pairs); a finite capacity leaves ``pairs`` out."""
+    cfg, p = _moe_layer(card, "mixtral-8x7b", seed=3)
+    x = torch.randn((1, 16, cfg.d_model),
+                    generator=torch.Generator(card).manual_seed(3),
+                    device=card).bfloat16()
+    tracing.disable()
+    tracing.reset()
+    tracing.enable()
+    try:
+        with tracing.span("moe.routed_mlp", device=True):
+            moe.moe_mlp(cfg, p, x, capacity_factor=float(cfg.n_experts),
+                        aux=False)
+        with tracing.span("moe.routed_mlp", device=True):
+            moe.moe_mlp(cfg, p, x, capacity_factor=0.5)
+    finally:
+        tracing.disable()
+    free, capped = tracing.export()["spans"]
+    tracing.reset()
+    pairs = 16 * cfg.top_k
+    assert free["attrs"]["pairs"] == pairs
+    assert len(free["attrs"]["expert_rows"]) == cfg.n_experts
+    assert sum(free["attrs"]["expert_rows"]) == pairs
+    assert "pairs" not in capped["attrs"]
+    assert sum(capped["attrs"]["expert_rows"]) < pairs
+
+
+@pytest.mark.gpu
+def test_moe_serving_steps_run_through_kernel(card):
+    """Full-width mixtral, 2 layers, bf16: a monolithic serving prefill and
+    one paged decode step of 4 slots each call the kernel once a layer."""
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=2)
+    params = api.init_params(cfg, torch.Generator(card).manual_seed(0),
+                             device=card)
+    n, bucket = 40, 64
+    toks = torch.zeros((1, bucket), dtype=torch.int32, device=card)
+    toks[0, :n] = torch.arange(1, n + 1, device=card)
+    before = MOE.launches
+    PD.prefill_bucketed(cfg, params, toks, n)
+    assert MOE.launches == before + cfg.n_layers
+    width = 4
+    kp, vp = PD.init_pages(cfg, 4 * width + 1, cfg.page_size, device=card)
+    tables = torch.arange(1, 4 * width + 1, dtype=torch.int32,
+                          device=card).reshape(4, width)
+    pos = torch.tensor([3, 9, 17, 30], dtype=torch.int32, device=card)
+    tok = torch.tensor([5, 7, 11, 13], dtype=torch.int32, device=card)
+    before = MOE.launches
+    PD.decode_step_paged(cfg, params, tok, kp, vp, tables, pos)
+    torch.cuda.synchronize()
+    assert MOE.launches == before + cfg.n_layers
+
+
+@pytest.mark.gpu
+def test_moe_prefill_mlp_row_is_batch_invariant_on_card(card):
+    """Full-width mixtral layer, bf16, serving prefill: a row's routed MLP
+    output is the same bits in a 64-row and a 256-row prefill, and wherever
+    the row sits."""
+    cfg, p = _moe_layer(card, "mixtral-8x7b", seed=1)
+    x = torch.randn((1, 256, cfg.d_model),
+                    generator=torch.Generator(card).manual_seed(4),
+                    device=card).bfloat16()
+    rows = PD.PREFILL_ROWS
+    y = moe.serving_prefill_mlp(cfg, p, x, rows)
+    assert torch.equal(moe.serving_prefill_mlp(cfg, p, x[:, :64], rows),
+                       y[:, :64])
+    moved = torch.flip(x, [1])
+    assert torch.equal(moe.serving_prefill_mlp(cfg, p, moved, rows),
+                       torch.flip(y, [1]))
 
 
 def _ssd_case(b, s, h, p, n, bc_dtype, seed=0, row_pad=5):

@@ -25,6 +25,7 @@ from repro.models import api as japi  # noqa: E402
 from repro.models import moe as JM  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import from_jax_numpy  # noqa: E402
+from repro_torch.kernels import moe_mlp as MOE  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.models import moe as TM  # noqa: E402
 from repro_torch.models.transformer import layer_params  # noqa: E402
@@ -151,6 +152,40 @@ def test_group_must_divide_tokens(layer_setup):
     x = torch.zeros((1, 24, cfg.d_model))
     with pytest.raises(ValueError, match="not divisible by group 16"):
         TM.moe_mlp(cfg, layer_params(tp["layers"], 0), x, group_size=16)
+
+
+@pytest.mark.parametrize("cf_mult", [None, 1.0])
+def test_serving_without_aux_gives_the_same_output(layer_setup, cf_mult):
+    """``aux=False`` (the serving paths) returns the same output bits and
+    no aux loss, with drops (cf 1.25) and drop-free."""
+    cfg, _, tp, _ = layer_setup
+    p = layer_params(tp["layers"], 0)
+    cf = 1.25 if cf_mult is None else cf_mult * cfg.n_experts
+    x = torch.as_tensor(_x((2, 16, cfg.d_model), seed=9)
+                        + _x((cfg.d_model,), seed=4))
+    want, aux = TM.moe_mlp(cfg, p, x, capacity_factor=cf, group_size=16)
+    got, none = TM.moe_mlp(cfg, p, x, capacity_factor=cf, group_size=16,
+                           aux=False)
+    assert none is None and aux is not None
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype,error", [(torch.bfloat16, ValueError),
+                                         (torch.float32, TypeError)])
+def test_kernel_path_has_no_fallback(layer_setup, dtype, error):
+    """Forced onto the kernel, CPU tensors (and f32 experts) raise before
+    any build or launch: no silent fall back to ``expert_mix``."""
+    cfg, _, tp, _ = layer_setup
+    p = layer_params(tp["layers"], 0)
+    p = {"router": p["router"],
+         "experts": {k: v.to(dtype) for k, v in p["experts"].items()}}
+    x = torch.zeros((1, 8, cfg.d_model), dtype=dtype)
+    assert not TM.on_kernel(x, p["experts"])
+    before = MOE.launches
+    with pytest.raises(error):
+        TM.moe_mlp(cfg, p, x, capacity_factor=float(cfg.n_experts),
+                   kernel=True, aux=False)
+    assert MOE.launches == before
 
 
 def test_finite_decode_capacity_drops_like_reference(layer_setup, monkeypatch):

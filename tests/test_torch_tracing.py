@@ -94,6 +94,25 @@ def test_spans_nest_with_parents_and_attributes(recorder):
     assert rid == 7 and chunk["end"] <= t <= launch["start"]
 
 
+def test_annotate_tags_the_innermost_open_span(recorder):
+    """``annotate`` adds to the innermost span open in its thread; a tensor
+    stays as it is until ``export`` gives it as a list; outside any span,
+    or with the recorder off, it adds nothing."""
+    T.annotate(pairs=1)
+    rows = torch.tensor([3, 0, 5], dtype=torch.int32)
+    with T.span("decode.launch", tokens=4):
+        with T.span("moe.routed_mlp"):
+            T.annotate(pairs=8, expert_rows=rows)
+        T.annotate(pairs=2)
+    assert T.REC.spans[1][T._ATTRS]["expert_rows"] is rows
+    T.disable()
+    with T.span("moe.routed_mlp"):
+        T.annotate(pairs=99)
+    launch, mlp = T.export()["spans"]
+    assert launch["attrs"] == {"tokens": 4, "pairs": 2}
+    assert mlp["attrs"] == {"pairs": 8, "expert_rows": [3, 0, 5]}
+
+
 def test_two_threads_nest_their_own_spans(recorder):
     """An admin thread's spans never take the engine thread's open span as
     their parent, and no record is lost under contention."""

@@ -4,8 +4,11 @@ A cell names a configuration and a traffic mix; the configuration names its
 file; the traffic mix is ``traffic/<name>.json``; every metric is
 ``metrics/<name>.py`` (dots in a metric's name become underscores in the
 file's). A metric split by kind of cell, ``<base>.<kind>``, with no file of
-its own is read by ``metrics/<base>.py``. Nothing here knows a particular
-cell, configuration or metric, so a new one is a new file and a new entry.
+its own is read by ``metrics/<base>.py``. A configuration's model family
+(its weights, reference, CPU cut and work counts) is
+``families/<arch_type>.py`` (``families/__init__.py``). Nothing here knows a
+particular cell, configuration, family or metric, so a new one is a new file
+and a new entry.
 """
 from __future__ import annotations
 

@@ -1,8 +1,9 @@
 """The comparison that decides ``correct``.
 
 After the window, a sample of the requests the service finished, drawn from
-the seed, is run once through the plain float32 reference (``reference/``)
-over each prompt and its served tokens. The sample always holds the longest
+the seed, is run once through the plain float32 reference of the model's
+family (``families/<arch_type>.py``, whose reference is under
+``reference/``) over each prompt and its served tokens. The sample always holds the longest
 finished request and, in a cell with a kill, up to half of it is requests
 that resumed on the ring peer from replicated KV. For every served token the
 gap by which the reference's logit of that token lies below the reference's
@@ -16,6 +17,16 @@ mean over the served tokens), and ``sample_requests`` and ``min_tokens``
 (fewer compared tokens fail). In a cell whose traffic has a kill, a run
 that compares no request resumed on the peer from replicated KV fails:
 the continuation through the replica is what such a cell exists for.
+
+Where the configuration replicates (``engine.replicate``, on by default as
+in the port), the replicas are read back as well: just after the window
+closes, with the engine held between two steps, ``read_back_replicas``
+ships what replication has staged (the engine's own barrier, the one a
+failover takes) and compares every KV block and state blob of every
+decoding request on a live instance with its copy on the ring peer, byte
+for byte. A run in which no block was compared, or one differs, or a block
+has no copy while the ring has a peer, fails: a replica that would not
+resume the request is a weaker guarantee, whatever the served tokens say.
 """
 from __future__ import annotations
 
@@ -24,13 +35,93 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from servebench import families
+
 
 def reference_logits(model: dict):
-    if model.get("n_experts", 0):
-        from servebench.reference import moe
-        return moe.logits
-    from servebench.reference import dense
-    return dense.logits
+    """The plain reference of the model's family (``families/<arch_type>.py``
+    names its file under ``reference/``)."""
+    return families.load(model).logits
+
+
+READ_BACK_CHUNK = 64     # blocks compared at a time (~50 MB a tensor at yi-9b)
+
+
+def _blocks_differing(src_pool, dst_pool, src: List[int], dst: List[int],
+                      names) -> torch.Tensor:
+    """How many of the blocks ``src`` of ``src_pool`` differ in any byte of
+    the buffers ``names`` from the blocks ``dst`` of ``dst_pool`` (buffers
+    laid out with the block on axis 2, as the port's pool keeps them)."""
+    dev = getattr(src_pool, names[0]).device
+    total = torch.zeros((), dtype=torch.long, device=dev)
+    for i in range(0, len(src), READ_BACK_CHUNK):
+        s = torch.as_tensor(src[i:i + READ_BACK_CHUNK], device=dev)
+        d = torch.as_tensor(dst[i:i + READ_BACK_CHUNK], device=dev)
+        bad = torch.zeros(len(s), dtype=torch.bool, device=dev)
+        for name in names:
+            a = getattr(src_pool, name).index_select(2, s)
+            b = getattr(dst_pool, name).index_select(2, d)
+            ne = a.view(torch.uint8) != b.view(torch.uint8)
+            bad |= ne.movedim(2, 0).reshape(len(s), -1).any(1)
+        total += bad.sum()
+    return total
+
+
+def read_back_replicas(engine) -> Dict[str, int]:
+    """Compare every decoding request's KV blocks (and state blob) on each
+    live instance with their replicas on its ring peer. Call it with the
+    engine held between two steps. Returns ``compared`` (blocks and blobs
+    with a copy), ``differing`` (of those, copies that differ in any byte)
+    and ``missing`` (blocks and blobs with no copy while the ring has a
+    live peer)."""
+    from repro_torch.serving.request import RequestState
+    engine.flush_replication(block=True)
+    compared = missing = 0
+    differing = []
+    for inst in engine.instances:
+        if not inst.alive:
+            continue
+        tgt = engine._ring_target(inst.instance_id)
+        if tgt < 0 or tgt == inst.instance_id:
+            continue
+        src_pool, dst_pool = inst.pool, engine.instances[tgt].pool
+        kv_names = ("k", "v", "k_scale", "v_scale") if src_pool.quantized \
+            else ("k", "v")
+        src, dst, bsrc, bdst = [], [], [], []
+        for rid, req in inst.requests.items():
+            if req.state != RequestState.DECODE:
+                continue
+            hosted = {r.logical_idx: r.slot for r in
+                      dst_pool.replica_table(inst.instance_id, rid)}
+            for ref in src_pool.table(rid):
+                if ref.logical_idx in hosted:
+                    src.append(ref.slot)
+                    dst.append(hosted[ref.logical_idx])
+                else:
+                    missing += 1
+            blob = src_pool.blob_ref(rid)
+            if blob is not None:
+                copy = dst_pool.blob_replica_ref(inst.instance_id, rid)
+                if copy is None:
+                    missing += 1
+                else:
+                    bsrc.append(blob.slot)
+                    bdst.append(copy.slot)
+        compared += len(src) + len(bsrc)
+        if src:
+            differing.append(_blocks_differing(src_pool, dst_pool, src, dst,
+                                               kv_names))
+        if bsrc:
+            # a blob store is (n_blobs, words): its slot on axis 0
+            blob_names = ("blobs", "blob_scales") if src_pool.quantized \
+                else ("blobs",)
+            for name in blob_names:
+                a = getattr(src_pool, name)[bsrc]
+                b = getattr(dst_pool, name)[bdst]
+                differing.append((a.view(torch.uint8) != b.view(torch.uint8))
+                                 .reshape(len(bsrc), -1).any(1).sum())
+    return {"compared": compared, "missing": missing,
+            "differing": int(sum(int(x) for x in differing))}
 
 
 def expected_length(req: dict, max_seq: int) -> int:
@@ -108,6 +199,14 @@ def verdict(config: dict, record, reqs: List[dict],
         resumed = sum(1 for r in reqs if r["migrations"] > 0)
         out["resumed_compared"] = {"value": resumed, "min": 1,
                                    "ok": resumed >= 1}
+    if config["engine"].get("replicate", True):
+        rb = getattr(record, "replicas", None) or \
+            {"compared": 0, "differing": 0, "missing": 0}
+        out["replica_blocks_compared"] = {
+            "value": rb["compared"], "min": 1, "ok": rb["compared"] >= 1}
+        for name in ("differing", "missing"):
+            out[f"replica_blocks_{name}"] = {
+                "value": rb[name], "limit": 0, "ok": rb[name] == 0}
     out["length_errors"] = {"value": bad_len, "limit": 0, "ok": bad_len == 0}
     return out
 

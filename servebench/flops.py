@@ -4,11 +4,20 @@ These count what the inputs need, whatever implements them: a prompt token
 is counted once however often it was prefilled, padding is not counted, and
 an MoE token counts its top-k experts only. ``model`` is the ``model`` block
 of a configuration file.
+
+The formulas here count attention and an MLP on every layer and no other
+state. Every function that takes the model block first is the model's
+family's own where ``families/<arch_type>.py`` defines one of that name
+(a hybrid counts attention on its attention layers only, and its scan's
+work and state); the formula here stays reachable as ``<name>.default``.
 """
 from __future__ import annotations
 
+import functools
 import json
 from pathlib import Path
+
+from servebench import families
 
 PEAKS = Path(__file__).resolve().parent / "peaks.json"
 
@@ -21,20 +30,33 @@ def peaks(device_name: str) -> dict:
     return table[device_name]
 
 
+def _family_may_override(fn):
+    @functools.wraps(fn)
+    def call(model: dict, *args):
+        return (families.function(model, fn.__name__) or fn)(model, *args)
+    call.default = fn
+    return call
+
+
+@_family_may_override
+def attention_matmul_params(model: dict) -> int:
+    """One layer's attention projections: Q, K, V and the output."""
+    d, h, k = model["d_model"], model["n_heads"], model["n_kv_heads"]
+    hd = model["head_dim"]
+    return d * h * hd + 2 * d * k * hd + h * hd * d
+
+
+@_family_may_override
 def active_matmul_params(model: dict) -> int:
     """Weights one token multiplies by: attention projections, the MLP (an
-    MoE's router and its top-k experts), and the unembedding. The embedding
-    lookup does no arithmetic."""
-    d, h, k = model["d_model"], model["n_heads"], model["n_kv_heads"]
-    hd, f = model["head_dim"], model["d_ff"]
-    attn = d * h * hd + 2 * d * k * hd + h * hd * d
-    if model.get("n_experts", 0):
-        mlp = model["top_k"] * 3 * d * f + d * model["n_experts"]
-    else:
-        mlp = 3 * d * f
-    return model["n_layers"] * (attn + mlp) + d * model["vocab_size"]
+    MoE family's: its router and its top-k experts), and the unembedding.
+    The embedding lookup does no arithmetic."""
+    d, f = model["d_model"], model["d_ff"]
+    return (model["n_layers"] * (attention_matmul_params(model) + 3 * d * f)
+            + d * model["vocab_size"])
 
 
+@_family_may_override
 def attended(model: dict, position: int) -> int:
     """Keys a query at ``position`` (0-based) attends to: causal, within the
     window where the model has one."""
@@ -43,28 +65,29 @@ def attended(model: dict, position: int) -> int:
     return min(n, w) if w else n
 
 
+@_family_may_override
 def attention_flops(model: dict, position: int) -> int:
     """QK^T and PV of one token at ``position`` over all layers."""
     return (4 * model["n_heads"] * model["head_dim"] * attended(model, position)
             * model["n_layers"])
 
 
+@_family_may_override
 def token_flops(model: dict, position: int) -> int:
     return 2 * active_matmul_params(model) + attention_flops(model, position)
 
 
+@_family_may_override
 def prompt_flops(model: dict, prompt_len: int) -> int:
     """A whole prompt, each token at its own position; only its last token
     needs the unembedding (its logits give the first output token)."""
     unembed = model["d_model"] * model["vocab_size"]
     base = 2 * (active_matmul_params(model) - unembed) * prompt_len \
         + 2 * unembed
-    per = 4 * model["n_heads"] * model["head_dim"] * model["n_layers"]
-    w = model.get("sliding_window", 0)
-    keys = sum(min(p + 1, w) if w else p + 1 for p in range(prompt_len))
-    return base + per * keys
+    return base + sum(attention_flops(model, p) for p in range(prompt_len))
 
 
+@_family_may_override
 def decode_flops(model: dict, prompt_len: int, g_from: int, g_to: int) -> int:
     """Decode steps that took a request from ``g_from`` to ``g_to``
     generated tokens. Token g (1-based) is produced at position
@@ -74,6 +97,7 @@ def decode_flops(model: dict, prompt_len: int, g_from: int, g_to: int) -> int:
                for g in range(max(g_from, 1) + 1, g_to + 1))
 
 
+@_family_may_override
 def kv_bytes_per_token_layer(model: dict) -> int:
     """K and V of one token in one attention layer, in the pool's dtype."""
     itemsize = {"bfloat16": 2, "float16": 2, "float32": 4, "int8": 1}[
@@ -81,10 +105,12 @@ def kv_bytes_per_token_layer(model: dict) -> int:
     return 2 * model["n_kv_heads"] * model["head_dim"] * itemsize
 
 
+@_family_may_override
 def kv_bytes_per_token(model: dict) -> int:
     return kv_bytes_per_token_layer(model) * model["n_layers"]
 
 
+@_family_may_override
 def decode_kv_bytes(model: dict, prompt_len: int, g_from: int,
                     g_to: int) -> int:
     """KV bytes the attention of those decode steps has to read: each step
@@ -94,6 +120,7 @@ def decode_kv_bytes(model: dict, prompt_len: int, g_from: int,
                for g in range(max(g_from, 1) + 1, g_to + 1))
 
 
+@_family_may_override
 def replication_bytes_per_token(model: dict, prompt_len: float,
                                 output_len: float) -> float:
     """What delta replication should ship per output token when every

@@ -10,8 +10,10 @@ the last one completes, until the window closes; requests still decoding
 then are neither counted nor failed.
 
 Everything the metrics read is gathered into one ``Record``; each metric's
-own file computes its number from it. The check that decides ``correct``
-runs after the service is shut down (``check.py``).
+own file computes its number from it. Right after the close the replicas
+are read back against their primaries (``check.read_back_replicas``); the
+rest of the check that decides ``correct`` runs after the service is shut
+down (``check.py``).
 """
 from __future__ import annotations
 
@@ -50,6 +52,7 @@ class Record:
     failure_events: List[dict]
     trace: Optional[dict] = None  # Tracer.summary() plus the edge snapshots
     device_name: str = ""
+    replicas: Optional[dict] = None   # check.read_back_replicas after the close
 
 
 def forbidden_modules() -> List[str]:
@@ -172,6 +175,21 @@ def _kill(svc, traffic):
                                      instance_id=int(kill["instance"])))
 
 
+def _read_back(svc, handles, until: float) -> dict:
+    """The replicas read back (``check.read_back_replicas``) between two
+    engine steps, first right after the close; again every 50 ms while no
+    request is decoding but some are unfinished, until ``until``."""
+    while True:
+        if svc.error is not None:
+            raise RuntimeError("engine loop stopped") from svc.error
+        with svc._lock:
+            found = CHECK.read_back_replicas(svc.engine)
+        live = any(req.finish_time < 0 for _, _, req in handles.all())
+        if found["compared"] or not live or time.time() >= until:
+            return found
+        time.sleep(0.05)
+
+
 def _grace(svc, handles, t_open, t_close, grace_s):
     """Keep stepping until every request due in the window has finished, at
     most ``grace_s`` past the close."""
@@ -190,13 +208,15 @@ class _ProfileEdges(threading.Thread):
     seconds after it actually opened (or when ``closed`` is set at the
     window's close), each edge taken under the service's lock, so between
     two engine steps. The profiler has to start and stop in one thread, so
-    this thread also stops it, right after the end edge."""
+    this thread also stops it, right after the end edge. ``stopped`` is set
+    once the end edge is taken (or no window was opened)."""
 
     def __init__(self, svc, tracer, snapshot, start: float, length: float):
         super().__init__(daemon=True)
         self.svc, self.tracer, self.snapshot = svc, tracer, snapshot
         self.start_at, self.length = start, length
         self.closed = threading.Event()
+        self.stopped = threading.Event()
         self.error = None
 
     def run(self):
@@ -209,11 +229,14 @@ class _ProfileEdges(threading.Thread):
             self.closed.wait(max(0.0, opened + self.length - time.time()))
             with self.svc._lock:
                 self.tracer.stop(self.snapshot())
+            self.stopped.set()
             # outside the lock, so the stop's processing holds the engine
             # only as long as it holds the interpreter
             self.tracer.finish()
         except Exception as e:  # noqa: BLE001 — re-raised by the run
             self.error = e
+        finally:
+            self.stopped.set()
 
 
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *,
@@ -275,6 +298,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *,
             gen_close = {req.rid: req.generated for _, _, req in handles.all()}
             steps_close = len(eng.step_samples)
             repl_close = eng.replication_stats()["bytes_total"]
+        if edges is not None:
+            # the read-back's copies and compares stay out of the profile
+            edges.stopped.wait()
+        replicas = _read_back(svc, handles,
+                              t_close + float(traffic.get("grace_s", 30.0)))
         if traffic["loop"] == "open":
             _grace(svc, handles, t_open, t_close,
                    float(traffic.get("grace_s", 30.0)))
@@ -319,7 +347,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *,
         cell=cell.name, model=model, traffic=traffic, setup_s=setup_s, t_open=t_open, t_close=t_close,
         t_stop=t_stop, requests=requests, steps=steps,
         repl_bytes=repl_close - repl_open, failure_events=failure_events,
-        trace=summary, device_name=name)
+        trace=summary, device_name=name, replicas=replicas)
     # the service's pools go before the reference runs
     del svc, eng
     gc.collect()

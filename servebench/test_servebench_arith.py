@@ -83,8 +83,9 @@ def test_active_params_hand_count():
 
 
 def test_model_flops_hand_count():
-    m = dict(n_layers=2, d_model=4, n_heads=2, n_kv_heads=1, head_dim=2,
-             d_ff=8, vocab_size=10, n_experts=0, top_k=0)
+    m = dict(arch_type="dense", n_layers=2, d_model=4, n_heads=2,
+             n_kv_heads=1, head_dim=2, d_ff=8, vocab_size=10, n_experts=0,
+             top_k=0)
     p = 2 * (4 * 4 + 2 * 4 * 2 + 4 * 4 + 3 * 4 * 8) + 4 * 10     # 296
     assert flops.active_matmul_params(m) == p
     # decode token at position 5 attends 6 keys: 4 * H * D * 6 * layers
@@ -183,7 +184,7 @@ def test_kill_cells_schedule_kills_while_every_request_decodes():
 ])
 def test_kill_cell_check_needs_a_resumed_request(kill, migrations, ok):
     from servebench import check
-    config = {"engine": {"max_seq": 64},
+    config = {"engine": {"max_seq": 64, "replicate": False},
               "check": {"max_logit_gap": 0.25, "min_tokens": 2}}
     rec = types.SimpleNamespace(traffic={"kill": kill})
     reqs = [{"prompt_len": 4, "max_new": 3, "output": [1, 2, 3],
@@ -191,3 +192,23 @@ def test_kill_cell_check_needs_a_resumed_request(kill, migrations, ok):
     out = check.verdict(config, rec, reqs, [np.zeros(3)] * len(reqs))
     assert all(c["ok"] for c in out.values()) == ok
     assert ("resumed_compared" in out) == (kill is not None)
+
+
+@pytest.mark.parametrize("replicas, ok", [
+    (None, False),                          # never read back
+    ({"compared": 0, "differing": 0, "missing": 0}, False),
+    ({"compared": 40, "differing": 0, "missing": 0}, True),
+    ({"compared": 40, "differing": 1, "missing": 0}, False),
+    ({"compared": 40, "differing": 0, "missing": 3}, False),
+])
+def test_replicating_cell_check_reads_the_replicas_back(replicas, ok):
+    from servebench import check
+    config = {"engine": {"max_seq": 64, "replicate": True},
+              "check": {"max_logit_gap": 0.25, "min_tokens": 2}}
+    rec = types.SimpleNamespace(traffic={"kill": None}, replicas=replicas)
+    reqs = [{"prompt_len": 4, "max_new": 3, "output": [1, 2, 3],
+             "migrations": 0}]
+    out = check.verdict(config, rec, reqs, [np.zeros(3)])
+    assert all(c["ok"] for c in out.values()) == ok
+    assert {"replica_blocks_compared", "replica_blocks_differing",
+            "replica_blocks_missing"} <= set(out)

@@ -10,11 +10,12 @@ import numpy as np
 import pytest
 import torch
 
+from servebench import bench, harness, weights
 from servebench import check as CHECK
-from servebench import harness, weights
 from servebench.tiny import tiny_cell
 
-CELLS = ["yi9b-rag-kill", "mixtral16-chat-batch"]
+# every cell of the benchmark, a cell added later included
+CELLS = [w["name"] for w in bench.load_json(bench.BENCHMARK)["workloads"]]
 
 
 def f32_config(cell_name):

@@ -1,6 +1,7 @@
 """Cells of ``BENCHMARK.json`` cut to a size the CPU runs in seconds, for the
 tests: the same files, traffic kinds and harness path, with a reduced model
-(two layers, width 128), sixteen slots an instance and short requests.
+(the family's ``tiny``: two layers, width 128), sixteen slots an instance
+and short requests.
 
 ``TINY_GAP_LIMIT`` is the dense check's limit at this size: sound CPU runs
 read a widest gap of 0.001-0.026, the float8 control 0.34-0.54 (six seeds
@@ -13,20 +14,15 @@ from __future__ import annotations
 
 import copy
 
-from servebench import bench
+from servebench import bench, families
 
 TINY_GAP_LIMIT = 0.1
 
 
-def tiny_cell(name: str) -> bench.Cell:
-    cell = bench.resolve(name)
+def tiny_cell(name: str, root=bench.ROOT) -> bench.Cell:
+    cell = bench.resolve(name, root=root)
     config = copy.deepcopy(cell.config)
-    model = config["model"]
-    model.update(n_layers=2, d_model=128, n_heads=4, head_dim=32, d_ff=256,
-                 vocab_size=512, page_size=8,
-                 n_kv_heads=2 if model["n_kv_heads"] < model["n_heads"] else 4)
-    if model.get("n_experts"):
-        model["n_experts"] = 4
+    config["model"] = families.load(config["model"]).tiny(config["model"])
     config["engine"].update(
         max_slots=16, max_seq=112,
         prefill_chunk=16 if config["engine"]["prefill_chunk"] else 0)
@@ -39,6 +35,10 @@ def tiny_cell(name: str) -> bench.Cell:
         # enough load that the killed instance has requests in flight, and
         # slots to spare on its peer for them to resume in
         traffic.update(rate_rps=16.0, grace_s=20)
+        if traffic.get("kill"):
+            # the warm spare back well inside the 4 s window, so the ring
+            # is whole again at the close, where the replicas are read back
+            traffic["kill"]["rejoin_delay_s"] = 1.0
     else:
         traffic["output"].update(min=8, max=24, mean=12)
         traffic.update(clients=16, stagger_s=0.5)

@@ -59,7 +59,9 @@ def main():
         third = max(1, len(due) // 3)
         ttft = [stats.median(stats.ttft(r) for r in part)
                 for part in (due[:third], due[-third:])]
-        print(json.dumps({"rate_rps": rate, "wait_first_third_s": first,
+        offered = sum(r["max_new"] for r in due) / args.seconds
+        print(json.dumps({"rate_rps": rate, "offered_out_tok_s": offered,
+                          "wait_first_third_s": first,
                           "wait_last_third_s": last, "steady": steady,
                           "ttft_first_third_s": ttft[0],
                           "ttft_last_third_s": ttft[1],
